@@ -9,31 +9,33 @@ Phases, each of which raises (exit code != 0) on failure:
   1. require CUDA; print torch's version, the card, and nvidia-smi's name and
      power limit;
   2. build the hand-written CUDA kernels from csrc/ (timed as set-up);
-  3. each kernel against its plain PyTorch version at the main path's shapes,
-     on the card, exact, with CUDA-event timings (median of 20 calls after
-     warm-up) of kernel and plain version;
+  3. both forms of each kernel against their plain PyTorch versions at the
+     main path's shapes, on the card, exact: the score map per level, the
+     per-cell best corner for the whole pyramid (rendered frame and uniform
+     noise), (idx, best, second) and the finished one-to-one match at the
+     three search shapes. Per form: the device time without the host (100
+     calls in one CUDA graph between two events), the wrapper-included time
+     and the plain version's (events around one call, median of 20), the
+     bound reckoned from this run's inputs, and the empty kernel's launch;
   4. the main path: frames 0-95 of the benchmark's 321-frame RGB-D orbit,
      rendered on the card, through `models.offline.track_sequence_rgbd` at the
      benchmark configuration (640x480, 1000 features, 8 levels, 128 keyframes,
-     16384 map points); launch counts of both kernels, tracked share, ATE
-     against the orbit's ground truth, frames/s; the first frames are also run
-     on the CPU (plain versions) and must agree.
+     16384 map points); launch counts of both kernels (fast_score_nms once
+     per frame), tracked share, ATE against the orbit's ground truth,
+     frames/s; the first frames are also run on the CPU (plain versions) and
+     must agree.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
 
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-BENCH = dict(fx=550.0, fy=550.0, cx=320.0, cy=240.0, width=640, height=480, n_features=1000,
-             max_keyframes=128, max_map_points=16384, fps=10.0, bf=44.0, th_depth=100.0)
-N_FRAMES, ORBIT_TOTAL = 96, 321
+N_FRAMES = 96
 # ATE bound (metres): twice the JAX reference's ATE on the same 96 frames,
 # 0.1431 m measured with the JAX package on the CPU (rigid-aligned). Without
 # loop closing the reference itself misses the 0.02 m bound on this orbit.
@@ -43,25 +45,6 @@ CPU_CHECK_FRAMES = 6
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(fn, n=20, warmup=3):
-    """Median device time of one call of fn, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
 
 
 def ate_rigid(est_centers, gt_centers):
@@ -86,65 +69,124 @@ def centers(poses):
     return np.stack([-p[:3, :3].T @ p[:3, 3] for p in poses])
 
 
-def check_fast(img, cfg):
+# Rates the bounds are reckoned with: the H100's memory rate and its float32
+# rate outside the tensor cores for operations that are not multiply-adds
+# (half of 67 TFLOP/s, which counts a multiply-add as two).
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 33.5e12
+# Operations per pixel of fast_score_nms: 16 subtractions, 64 mins + 64 maxes
+# for the 9-windows in doubling form, 32 to reduce them, 9 for the NMS.
+FAST_OPS_PER_PIXEL = 185
+# Operations of masked_best_two: the window, level and validity test per
+# (valid query, target) pair; 8 XORs, 8 popcounts and their sum for a pair
+# that passes it.
+SEARCH_OPS_PER_PAIR, SEARCH_OPS_PER_CANDIDATE = 8, 27
+
+
+def bound(n_bytes, n_ops):
+    """(least time in ms, "bytes" or "operations") for work that must move
+    n_bytes and do n_ops on the card."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def timed(kt, name, shape, kernel_fn, plain_fn, n_bytes, n_ops, floor_ms):
+    """One form at one shape: device time of the kernel (graph), its
+    wrapper-included time and the plain version's (events), and the bound."""
+    ms, wrapper_ms, plain_ms = kt.graph_us(kernel_fn) / 1e3, kt.wrapper_us(kernel_fn) / 1e3, kt.wrapper_us(plain_fn) / 1e3
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"{name} {shape}: equal; device {ms:.4f} ms, with wrapper {wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by}), empty launch {floor_ms:.5f} ms")
+    return {"form": name, "shape": shape, "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_fast(kt, img, noise, cfg, ocfg, floor_ms):
+    """Kernel 1, both forms, exact: the score map per level, and cell_best /
+    cell_arg for the whole pyramid on the rendered frame and on noise."""
     import torch
     from orb_slam2v2_1_tpu_torch import kernels
     from orb_slam2v2_1_tpu_torch.ops import fast, image
 
-    levels = [lvl.contiguous() for lvl in image.build_pyramid(img, cfg.n_levels, cfg.scale_factor)]
-    err, ms, plain_ms, shapes = 0.0, 0.0, 0.0, []
+    rank = dict(cell=ocfg.cell, border=ocfg.border, threshold=ocfg.fast_threshold, min_threshold=ocfg.fast_min_threshold)
+
+    def pyramid(x):
+        return [lvl.contiguous() for lvl in image.build_pyramid(x, cfg.n_levels, cfg.scale_factor)]
+
+    def plain_cells(lv):
+        return [fast.rank_cells(fast.nms3(fast.fast_score(lvl)), **rank) for lvl in lv]
+
+    levels, shapes = pyramid(img), []
     for lvl in levels:
         got = kernels.fast_score_nms(lvl)
         ref = fast.nms3(fast.fast_score(lvl))
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"fast_score_nms differs from nms3(fast_score) at {tuple(lvl.shape)}")
-        err = max(err, float((got - ref).abs().max()))
-        k_ms = cuda_ms(lambda: kernels.fast_score_nms(lvl))
-        p_ms = cuda_ms(lambda: fast.nms3(fast.fast_score(lvl)))
-        ms += k_ms
-        plain_ms += p_ms
-        shapes.append({"shape": list(lvl.shape), "ms": k_ms, "plain_ms": p_ms})
-        log(f"fast_score_nms {tuple(lvl.shape)}: equal, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shapes": shapes}
+        shapes.append(timed(kt, "fast_score_nms map", list(lvl.shape), lambda: kernels.fast_score_nms(lvl),
+                            lambda: fast.nms3(fast.fast_score(lvl)), 8 * lvl.numel(),
+                            FAST_OPS_PER_PIXEL * lvl.numel(), floor_ms))
+    for name, lv in (("rendered", levels), ("noise", pyramid(noise))):
+        got = fast.suppressed_cells_pyramid(lv, **rank)
+        ref = plain_cells(lv)
+        torch.cuda.synchronize()
+        n_cells = n_strong = n_empty = 0
+        for l, (lvl, (rb, ra)) in enumerate(zip(lv, ref)):
+            gb, ga = got.level(l)
+            if not (torch.equal(gb, rb) and torch.equal(ga, ra) and not got.best[l, gb.numel():].any()):
+                raise AssertionError(f"fast_score_nms cell form differs from rank_cells at {tuple(lvl.shape)} ({name})")
+            n_cells, n_strong, n_empty = n_cells + rb.numel(), n_strong + int((rb >= 1e4).sum()), n_empty + int((rb == 0).sum())
+        log(f"fast_score_nms cells, {name} frame: equal over {len(lv)} levels, {n_cells} cells, "
+            f"{n_strong} with a strong corner, {n_empty} empty")
+    pixels = sum(lvl.numel() for lvl in levels)
+    cells = sum(ch * cw for ch, cw in got.grids)
+    main = timed(kt, "fast_score_nms cells", [list(lvl.shape) for lvl in levels],
+                 lambda: fast.suppressed_cells_pyramid(levels, **rank), lambda: plain_cells(levels),
+                 4 * pixels + 12 * cells, FAST_OPS_PER_PIXEL * pixels, floor_ms)
+    return {"max_abs_err": 0.0, **{k: main[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+            "shapes": shapes + [main]}
 
 
-def check_match(dev, rng):
-    import numpy as np
+def check_match(kt, dev, rng, floor_ms):
+    """Kernel 2, both forms, exact, at the three shapes of the main path."""
     import torch
-    from orb_slam2v2_1_tpu_torch import kernels
-    from orb_slam2v2_1_tpu_torch.ops import hamming, matching
+    from orb_slam2v2_1_tpu_torch.ops import matching
 
-    def feats(b, n):
-        words = hamming.words_from_uint32(rng.integers(0, 2**32, (b, n, 8), dtype=np.uint32))
-        words[:, 5::7] = words[:, :1]  # ties of the best distance
-        xy = np.stack([rng.uniform(0, 640, (b, n)), rng.uniform(0, 480, (b, n))], -1)
-        lvl = rng.integers(0, 8, (b, n))
-        valid = rng.uniform(size=(b, n)) > 0.1
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
-                (words, xy.astype(np.float32), lvl.astype(np.int32), valid)]
-
-    err, out = 0.0, {}
-    # Motion model (1000 x 1000), local map (4096 x 1000), batched fuse (20 x 1000 x 1000).
-    for name, (b, q, n) in (("motion", (1, 1000, 1000)), ("local_map", (1, 4096, 1000)),
-                            ("fuse", (20, 1000, 1000))):
-        qf, tf = feats(b, q), feats(b, n)
-        r = torch.from_numpy(rng.uniform(5, 60, (b, q)).astype(np.float32)).to(dev)
+    shapes = []
+    for name, (b, q, n) in kt.SEARCH_SHAPES:
+        qf, r, tf = kt.search_inputs(rng, dev, b, q, n)
+        max_dist, ratio = kt.SEARCH_PARAMS[name]
         idx, best, second = matching.masked_best_two(*qf, r, *tf)
         ridx, rbest, rsecond = matching.masked_best_two_plain(*qf, r, *tf)
+        got = matching.match_projection(*qf, *tf, r, max_dist=max_dist, nn_ratio=ratio)
+        ref = matching.match_projection_plain(*qf, *tf, r, max_dist=max_dist, nn_ratio=ratio)
         torch.cuda.synchronize()
-        has = rbest < matching.BIG
-        if not (torch.equal(best, rbest) and torch.equal(second, rsecond) and torch.equal(idx[has], ridx[has])):
+        if not (torch.equal(best, rbest) and torch.equal(second, rsecond) and torch.equal(idx, ridx)):
             raise AssertionError(f"masked_best_two differs from the plain version at {(b, q, n)}")
-        for g, e in ((best, rbest), (second, rsecond), (idx[has], ridx[has])):
-            err = max(err, float((g.long() - e.long()).abs().max()) if g.numel() else 0.0)
-        k_ms = cuda_ms(lambda: matching.masked_best_two(*qf, r, *tf))
-        p_ms = cuda_ms(lambda: matching.masked_best_two_plain(*qf, r, *tf))
-        out[name] = {"shape": [b, q, n], "ms": k_ms, "plain_ms": p_ms, "with_candidate": float(has.float().mean())}
-        log(f"masked_best_two {(b, q, n)}: equal ({float(has.float().mean()):.2f} of rows with a candidate),"
-            f" kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
-    return {"max_abs_err": err, "ms": out["local_map"]["ms"], "plain_ms": out["local_map"]["plain_ms"],
-            "shapes": list(out.values())}
+        if not (torch.equal(got.ok, ref.ok) and torch.equal(got.dist, ref.dist)
+                and torch.equal(got.idx[ref.ok], ref.idx[ref.ok])):
+            raise AssertionError(f"match_projection differs from the plain version at {(b, q, n)}")
+        pre_ok = matching._ratio_ok(rbest, rsecond, max_dist, ratio)
+        mask = (matching.window_mask(qf[1], tf[1], r) & matching.level_mask(qf[2], tf[2], -1, 1)
+                & qf[3][..., :, None] & tf[3][..., None, :])
+        candidates = int(mask.sum())
+        del mask
+        log(f"masked_best_two {name} {(b, q, n)}: both forms equal; {float((rbest < matching.BIG).float().mean()):.2f} "
+            f"of queries have a candidate, {candidates} candidate pairs, {int(pre_ok.sum())} pass the tests, "
+            f"{int(ref.ok.sum())} keep their target")
+        n_ops = SEARCH_OPS_PER_PAIR * int(qf[3].sum()) * n + SEARCH_OPS_PER_CANDIDATE * candidates
+        in_bytes = b * q * (32 + 8 + 4 + 1 + 4) + b * n * (32 + 8 + 4 + 1)
+        shapes.append(timed(kt, "masked_best_two best-two", [b, q, n],
+                            lambda: matching.masked_best_two(*qf, r, *tf),
+                            lambda: matching.masked_best_two_plain(*qf, r, *tf),
+                            in_bytes + b * q * 16, n_ops, floor_ms))
+        shapes.append(timed(kt, "masked_best_two match", [b, q, n],
+                            lambda: matching.match_projection(*qf, *tf, r, max_dist=max_dist, nn_ratio=ratio),
+                            lambda: matching.match_projection_plain(*qf, *tf, r, max_dist=max_dist, nn_ratio=ratio),
+                            in_bytes + b * q * 13, n_ops, floor_ms))
+    main = shapes[3]  # the local-map search in the match form: two of them per tracked frame
+    return {"max_abs_err": 0.0, **{k: main[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+            "shapes": shapes}
 
 
 def main():
@@ -162,15 +204,17 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))) != ROOT:
         raise SystemExit(f"chip_smoke: expected the port beside this script, found {port.__file__}")
+    from orb_slam2v2_1_tpu_torch import kernel_times as kt
     from orb_slam2v2_1_tpu_torch import kernels, sync
     from orb_slam2v2_1_tpu_torch.models import offline
+    from orb_slam2v2_1_tpu_torch.ops import orb
     from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
-    cfg = config.SlamConfig(**BENCH)
+    cfg = config.SlamConfig(**kt.BENCH)
+    ocfg = orb.OrbConfig(n_features=cfg.n_features, n_levels=cfg.n_levels, scale=cfg.scale_factor,
+                         fast_threshold=cfg.fast_threshold, fast_min_threshold=cfg.fast_min_threshold)
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "not measured"
+    card = kt.card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     log(card)
 
@@ -179,15 +223,19 @@ def main():
     log(f"kernel build: {build_s:.1f} s (nvcc), set-up total {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    imgs, deps, gt = synthetic.orbit_frames(cfg, N_FRAMES, device=dev, total=ORBIT_TOTAL)
+    imgs, deps, gt = synthetic.orbit_frames(cfg, N_FRAMES, total=kt.ORBIT_TOTAL)  # no device given: the card
     torch.cuda.synchronize()
     log(f"rendered {N_FRAMES} orbit frames on the card in {time.perf_counter() - t0:.1f} s")
-    if not (torch.isfinite(imgs).all() and (deps > 0).float().mean() > 0.99):
-        raise AssertionError("rendered frames are not finite or lack depth")
+    if not (imgs.is_cuda and torch.isfinite(imgs).all() and (deps > 0).float().mean() > 0.99):
+        raise AssertionError("rendered frames are not on the card, not finite or lack depth")
 
     rng = np.random.default_rng(0)
-    fast_res = check_fast(imgs[0].contiguous(), cfg)
-    match_res = check_match(dev, rng)
+    floor_ms = kt.graph_us(lambda: kernels.empty_launch(dev)) / 1e3
+    log(f"empty kernel: device {floor_ms:.5f} ms per launch (the floor under both bounds), "
+        f"with wrapper {kt.wrapper_us(lambda: kernels.empty_launch(dev)) / 1e3:.4f} ms")
+    noise = torch.from_numpy(rng.uniform(0, 255, (cfg.height, cfg.width)).astype(np.float32)).to(dev)
+    fast_res = check_fast(kt, imgs[0].contiguous(), noise, cfg, ocfg, floor_ms)
+    match_res = check_match(kt, dev, rng, floor_ms)
 
     # --- the main path ---
     kernels.reset_launch_counts()
@@ -220,10 +268,12 @@ def main():
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
+    if launches["fast_score_nms"] != N_FRAMES:
+        raise AssertionError(f"fast_score_nms: {launches['fast_score_nms']} launches for {N_FRAMES} frames, expected one each")
 
     # --- the same frames through the plain versions on the CPU ---
     cpu_poses, cpu_ok, _ = offline.track_sequence_rgbd(
-        imgs[:CPU_CHECK_FRAMES].cpu(), deps[:CPU_CHECK_FRAMES].cpu(), cfg)
+        imgs[:CPU_CHECK_FRAMES].cpu().numpy(), deps[:CPU_CHECK_FRAMES].cpu().numpy(), cfg, device="cpu")
     dc = np.linalg.norm(centers(cpu_poses) - c_est[:CPU_CHECK_FRAMES], axis=1).max()
     log(f"CPU plain path, frames 0-{CPU_CHECK_FRAMES - 1}: ok {cpu_ok.tolist()}, max center diff {dc:.2e} m")
     if not (np.array_equal(cpu_ok, ok[:CPU_CHECK_FRAMES]) and dc <= 2e-3):
@@ -237,7 +287,8 @@ def main():
         return {"name": name, "route": "cuda", "source": f"orb_slam2v2_1_tpu_torch/csrc/{src}",
                 "replaces": f"orb_slam2v2_1_tpu/ops/pallas_kernels.py:{line}", "launches": launches[name],
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
-                "shapes": res["shapes"]}
+                "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": None,
+                "wrapper_ms": res["wrapper_ms"], "empty_launch_ms": floor_ms, "shapes": res["shapes"]}
 
     print(json.dumps({
         "kernels": [entry("fast_score_nms", fast_res, "fast_score_nms.cu", 137),
@@ -271,7 +322,7 @@ def profile(offline, imgs, deps, cfg, out_dir, n=11):
     dev_ms = sum(e.self_device_time_total for e in avg if e.device_type == DeviceType.CUDA) / 1e3
     n_kernels = sum(e.count for e in avg if e.device_type == DeviceType.CUDA)
     log(f"profile, frames 0-{n - 1}: wall {wall * 1e3:.1f} ms unprofiled, device kernel time {dev_ms:.1f} ms "
-        f"in {n_kernels} kernels, device busy share {dev_ms / (wall * 1e3):.3f}")
+        f"in {n_kernels} kernels ({n_kernels / n:.0f} per frame), device busy share {dev_ms / (wall * 1e3):.3f}")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_main_path.txt"), "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=40))

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..ops import hamming
 from ..ops.topk import scatter_last, set_drop, stable_topk
 
@@ -72,7 +73,9 @@ OBS_CAP = 12  # max observations considered per point for stats
 _DESC_FIELDS = ("kf_desc", "mp_desc")
 
 
-def empty_map(max_kf: int = 256, max_mp: int = 32768, n_kp: int = 1024, device="cpu") -> MapState:
+def empty_map(max_kf: int = 256, max_mp: int = 32768, n_kp: int = 1024, device=None) -> MapState:
+    """An empty map on `device` (None: the card, see `device.resolve`)."""
+    device = device_mod.resolve(device)
     K, M, N = max_kf, max_mp, n_kp
     i32, f32 = torch.int32, torch.float32
 
@@ -111,9 +114,10 @@ def empty_map(max_kf: int = 256, max_mp: int = 32768, n_kp: int = 1024, device="
     )
 
 
-def from_numpy(arrays: dict, device="cpu") -> MapState:
-    """MapState from the reference's numpy arrays (uint32 descriptors become
-    int32 words with the same bits)."""
+def from_numpy(arrays: dict, device=None) -> MapState:
+    """MapState on `device` (None: the card) from the reference's numpy arrays
+    (uint32 descriptors become int32 words with the same bits)."""
+    device = device_mod.resolve(device)
     out = {}
     for name in MapState._fields:
         a = np.asarray(arrays[name])

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from .. import sync
 from ..ops import orb
 from . import frontend, initialization, local_mapping
@@ -149,13 +150,13 @@ def track_sequence_rgbd(images, depths, cfg, loop_closer=None,
                         chunk: int | None = None, voc=None, device=None):
     """Init on frame 0, track the rest. images/depths are (N,H,W) numpy
     arrays or tensors; tensors stay on their device, numpy frames go to
-    `device` (default: the CPU) one at a time. Returns (poses (N,4,4) numpy
+    `device` (None: the card; raises without one) one at a time. Returns (poses (N,4,4) numpy
     incl. frame 0, ok (N,) numpy, state)."""
     if loop_closer is not None:
         raise NotImplementedError("loop closing is not ported yet")
-    if device is None:
-        device = images.device if torch.is_tensor(images) else torch.device("cpu")
-    device = torch.device(device)
+    if device is None and torch.is_tensor(images):
+        device = images.device
+    device = device_mod.resolve(device)
     K = torch.tensor(cfg.K, dtype=torch.float32, device=device)
     dist = torch.tensor(cfg.dist, dtype=torch.float32, device=device)
     bf = float(np.float32(cfg.bf))

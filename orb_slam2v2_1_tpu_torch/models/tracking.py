@@ -15,6 +15,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..ops import ba, hamming, matching
 from ..ops.projection import project
 from ..ops.topk import set_drop, stable_topk
@@ -55,9 +56,10 @@ class TrackStats(NamedTuple):
     n_inliers: torch.Tensor
 
 
-def frame_from_numpy(arrays: dict, device="cpu") -> FrameData:
-    """FrameData from the reference's numpy arrays (uint32 desc -> words,
-    bf16 desc_pm1 -> float32)."""
+def frame_from_numpy(arrays: dict, device=None) -> FrameData:
+    """FrameData on `device` (None: the card) from the reference's numpy
+    arrays (uint32 desc -> words, bf16 desc_pm1 -> float32)."""
+    device = device_mod.resolve(device)
     out = {}
     for name in FrameData._fields:
         a = np.asarray(arrays[name])

@@ -4,11 +4,13 @@ Port of the JAX package's `ops/matching.py` (all but `match_mutual`, which
 belongs to the monocular initializer). Every function takes optional leading
 batch dimensions, which replace the reference's `vmap`s.
 
-`masked_best_two` is the entry point of kernel 2
-(`csrc/masked_best_two.cu`): on CUDA tensors it launches the kernel, on CPU
-tensors it runs the plain version `best_two(distance_matrix, mask)`, which
-the kernel equals exactly. `match_projection` takes packed int32 descriptor
-words, the form every caller already holds.
+Kernel 2 (`csrc/masked_best_two.cu`) has two entry points here, and each
+launches the kernel for CUDA tensors and runs its plain version for CPU
+tensors, which the kernel equals exactly: `masked_best_two` (best, argmin and
+second-best per query; plain: `best_two(distance_matrix, mask)`) and
+`match_projection` (the same search ending in the distance and ratio tests
+and the one-to-one resolution; plain: `match_projection_plain`).
+Both take packed int32 descriptor words, the form every caller already holds.
 
 Thresholds follow the reference: TH_HIGH=100, TH_LOW=50, 30 rotation bins.
 """
@@ -125,30 +127,48 @@ def masked_best_two_plain(q_words, q_xy, q_level, q_valid, radius,
     return best_two(D, mask)
 
 
+def _search_batch(q_words, q_xy, q_level, q_valid, radius, t_words, t_xy, t_level, t_valid):
+    """The kernels' (B, Q, ..) / (B, N, ..) views of a search's inputs and
+    the leading shape. Inputs of the right type and layout are only viewed;
+    a scalar or broadcast radius is materialized."""
+    lead = q_words.shape[:-2]
+    Q, N = q_words.shape[-2], t_words.shape[-2]
+    if not (torch.is_tensor(radius) and radius.shape == lead + (Q,) and radius.dtype == torch.float32):
+        radius = torch.as_tensor(radius, dtype=torch.float32, device=q_words.device).expand(lead + (Q,))
+    shaped = [x.reshape((-1,) + tail) for x, tail in (
+        (q_words, (Q, 8)), (q_xy, (Q, 2)), (q_level, (Q,)), (q_valid, (Q,)), (radius, (Q,)),
+        (t_words, (N, 8)), (t_xy, (N, 2)), (t_level, (N,)), (t_valid, (N,)))]
+    return shaped, lead + (Q,)
+
+
 def masked_best_two(q_words, q_xy, q_level, q_valid, radius,
                     t_words, t_xy, t_level, t_valid, level_lo=-1, level_hi=1):
     """Fused SearchByProjection reduction -> (best_idx int64, best int32,
-    second int32), each (..., Q): kernel 2 on CUDA tensors, the plain version
-    on CPU tensors."""
+    second int32), each (..., Q): kernel 2 (best-two form) on CUDA tensors,
+    the plain version on CPU tensors."""
     if not q_words.is_cuda:
         return masked_best_two_plain(q_words, q_xy, q_level, q_valid, radius,
                                      t_words, t_xy, t_level, t_valid, level_lo, level_hi)
     from .. import kernels
 
-    lead = q_words.shape[:-2]
-    Q, N = q_words.shape[-2], t_words.shape[-2]
-    r = torch.as_tensor(radius, dtype=torch.float32, device=q_words.device).expand(lead + (Q,))
+    shaped, out_shape = _search_batch(q_words, q_xy, q_level, q_valid, radius,
+                                      t_words, t_xy, t_level, t_valid)
+    return tuple(o.view(out_shape) for o in kernels.masked_best_two(*shaped, level_lo, level_hi))
 
-    def flat(x, tail):
-        return x.reshape((-1,) + tail).contiguous()
 
-    idx, best, second = kernels.masked_best_two(
-        flat(q_words, (Q, 8)), flat(q_xy.float(), (Q, 2)), flat(q_level.to(torch.int32), (Q,)),
-        flat(q_valid, (Q,)), flat(r, (Q,)),
-        flat(t_words, (N, 8)), flat(t_xy.float(), (N, 2)), flat(t_level.to(torch.int32), (N,)),
-        flat(t_valid, (N,)), level_lo, level_hi,
+def match_projection_plain(
+    q_words, q_xy_pred, q_level_pred, q_valid,
+    t_words, t_xy, t_level, t_valid, radius,
+    max_dist: int = TH_HIGH, nn_ratio: float = 0.9, level_lo: int = -1, level_hi: int = 1,
+) -> Matches:
+    """Plain version of kernel 2's match form: `resolve_duplicates` over
+    `_ratio_ok` over `masked_best_two_plain`."""
+    best_idx, best, second = masked_best_two_plain(
+        q_words, q_xy_pred, q_level_pred, q_valid, radius,
+        t_words, t_xy, t_level, t_valid, level_lo, level_hi,
     )
-    return idx.reshape(lead + (Q,)).long(), best.reshape(lead + (Q,)), second.reshape(lead + (Q,))
+    ok = _ratio_ok(best, second, max_dist, nn_ratio)
+    return resolve_duplicates(best_idx, best, ok, t_words.shape[-2])
 
 
 def match_projection(
@@ -157,10 +177,16 @@ def match_projection(
     max_dist: int = TH_HIGH, nn_ratio: float = 0.9, level_lo: int = -1, level_hi: int = 1,
 ) -> Matches:
     """SearchByProjection analog (map points -> frame keypoints) over packed
-    descriptor words, with optional leading batch dimensions."""
-    best_idx, best, second = masked_best_two(
-        q_words, q_xy_pred, q_level_pred, q_valid, radius,
-        t_words, t_xy, t_level, t_valid, level_lo, level_hi,
-    )
-    ok = _ratio_ok(best, second, max_dist, nn_ratio)
-    return resolve_duplicates(best_idx, best, ok, t_words.shape[-2])
+    descriptor words, with optional leading batch dimensions: the search, the
+    distance and ratio tests and the one-to-one resolution. Kernel 2 (match
+    form) on CUDA tensors, `match_projection_plain` on CPU tensors."""
+    if not q_words.is_cuda:
+        return match_projection_plain(q_words, q_xy_pred, q_level_pred, q_valid,
+                                      t_words, t_xy, t_level, t_valid, radius,
+                                      max_dist, nn_ratio, level_lo, level_hi)
+    from .. import kernels
+
+    shaped, out_shape = _search_batch(q_words, q_xy_pred, q_level_pred, q_valid, radius,
+                                      t_words, t_xy, t_level, t_valid)
+    idx, dist, ok = kernels.masked_match(*shaped, level_lo, level_hi, max_dist, nn_ratio)
+    return Matches(idx=idx.view(out_shape), dist=dist.view(out_shape), ok=ok.view(out_shape))

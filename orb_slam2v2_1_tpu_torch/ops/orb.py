@@ -158,16 +158,17 @@ def extract_orb(img: torch.Tensor, config: OrbConfig = OrbConfig()) -> OrbFeatur
     capacity is config.n_features (padded with valid=False)."""
     pyr = image_ops.build_pyramid(img, config.n_levels, config.scale)
     counts = fast_ops.level_feature_counts(config.n_features, config.n_levels, config.scale)
+    used = [(lvl, limg.contiguous(), n_l) for lvl, (limg, n_l) in enumerate(zip(pyr, counts)) if n_l > 0]
+    # One kernel launch scores, suppresses and ranks every level (on the CPU:
+    # the plain versions, level by level).
+    cells = fast_ops.suppressed_cells_pyramid(
+        [limg for _, limg, _ in used], cell=config.cell, border=config.border,
+        threshold=config.fast_threshold, min_threshold=config.fast_min_threshold,
+        min_stride=max(counts),
+    )
+    picked = fast_ops.select_from_pyramid_cells(cells, [n_l for _, _, n_l in used], config.cell)
     per_level = []
-    for lvl, (limg, n_l) in enumerate(zip(pyr, counts)):
-        if n_l == 0:
-            continue
-        score = fast_ops.suppressed_score(limg)
-        yx, resp, valid = fast_ops.select_keypoints(
-            score, n_l, cell=config.cell, border=config.border,
-            threshold=config.fast_threshold, min_threshold=config.fast_min_threshold,
-            suppress=False,
-        )
+    for (lvl, limg, n_l), (yx, resp, valid) in zip(used, picked):
         raw = _gather_patches(limg, yx, half=GATHER_HALF)
         bpatches = blur_patches(raw, 3.0)
         ang = ic_angle(bpatches)

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..ops import lie
 
 
@@ -39,8 +40,10 @@ def blob_texture(rng: np.random.Generator, size: int = 512, n_blobs: int = 900) 
     return img + 10.0
 
 
-def make_room(rng: np.random.Generator, tex_size: int = 512, device="cpu") -> PlaneScene:
-    """A 8x6x4 m room with mid-room boxes at 2-5 m (strong depth variation)."""
+def make_room(rng: np.random.Generator, tex_size: int = 512, device=None) -> PlaneScene:
+    """A 8x6x4 m room with mid-room boxes at 2-5 m (strong depth variation),
+    on `device` (None: the card, see `device.resolve`)."""
+    device = device_mod.resolve(device)
     planes = [
         ([-4.0, 2.0, 0.0], [8.0, 0.0, 0.0], [0.0, 0.0, 8.0]),  # floor y=+2
         ([-4.0, -2.0, 0.0], [8.0, 0.0, 0.0], [0.0, 0.0, 8.0]),  # ceiling y=-2
@@ -129,10 +132,11 @@ def orbit_pose(k: int, total: int) -> np.ndarray:
     return np.linalg.inv(Twc).astype(np.float32)
 
 
-def orbit_frames(cfg, n_frames: int, device="cpu", total: int | None = None):
+def orbit_frames(cfg, n_frames: int, device=None, total: int | None = None):
     """Frames 0..n_frames-1 of the benchmark's `total`-frame orbit (default
-    total = n_frames), rendered on `device`. Returns (images (n,H,W),
+    total = n_frames), rendered on `device` (None: the card). Returns (images (n,H,W),
     depths (n,H,W)) tensors and the ground-truth Tcw (n,4,4) numpy."""
+    device = device_mod.resolve(device)
     total = n_frames if total is None else total
     rng = np.random.default_rng(11)
     room = make_room(rng, device=device)

@@ -1,9 +1,11 @@
 """The hand-written CUDA kernels' wrappers and their device dispatch.
 
 On the CPU (this suite's default) the dispatching functions
-`ops.fast.suppressed_score` and `ops.matching.masked_best_two` run the plain
-PyTorch versions and never reach `kernels`; the wrappers in `kernels` accept
-CUDA tensors only. The kernel-vs-plain tests at the main path's shapes need
+`ops.fast.suppressed_score` / `suppressed_cells_pyramid` and
+`ops.matching.masked_best_two` / `match_projection` run the plain PyTorch
+versions and never reach `kernels`; the wrappers in `kernels` accept CUDA
+tensors only. The entry points that create tensors default to the card and
+raise without one. The kernel-vs-plain tests at the main path's shapes need
 an NVIDIA card: they decide inside a fixture whether one is present and skip
 without it (a skip is not a pass). `python3 chip_smoke.py` runs the same
 comparisons on the card.
@@ -42,11 +44,32 @@ def _features(rng, b, n, device="cpu"):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (words, xy, lvl, valid)]
 
 
+def _pyramid(rng, device="cpu", shape=(480, 640), noise=True):
+    """Levels of an 8-level pyramid over uniform noise (ties of 0 and empty
+    cells are common after thresholding) or over a smooth texture."""
+    img = rng.uniform(0, 255, shape).astype(np.float32)
+    if not noise:
+        from scipy.ndimage import gaussian_filter
+
+        img = np.clip(gaussian_filter(img - 128, 2.0) * 12 + 128, 0, 255).astype(np.float32)
+    return [lvl.contiguous() for lvl in image.build_pyramid(torch.from_numpy(img).to(device), 8, 1.2)]
+
+
+# The main path's three shapes, then ragged ones: a few queries, three target
+# tiles (the double buffer is reused), and an odd query count in each of the
+# kernel's regimes (under 2048 queries, under 8192, above).
+SEARCH_SHAPES = [(1, 1000, 1000), (1, 4096, 1000), (20, 1000, 1000), (3, 7, 5), (2, 50, 1031),
+                 (1, 2501, 1500), (3, 3001, 700)]
+RANK = dict(cell=16, border=19, threshold=20.0, min_threshold=7.0)
+
+
 class TestCpuPath:
     def test_library_path_is_content_keyed(self):
-        path = kernels.library_path()
-        assert path.parent == kernels.BUILD_DIR and path.name.endswith(".so")
-        assert kernels.library_path() == path
+        paths = [kernels.library_path(src) for src in kernels.SOURCES]
+        assert len(set(paths)) == len(kernels.SOURCES)
+        for src, path in zip(kernels.SOURCES, paths):
+            assert path.parent == kernels.BUILD_DIR and path.name.endswith(".so")
+            assert kernels.library_path(src) == path
 
     def test_cpu_tensors_take_plain_version_without_launching(self, rng, monkeypatch):
         def no_build(*a, **k):
@@ -56,21 +79,104 @@ class TestCpuPath:
         kernels.reset_launch_counts()
         img = torch.from_numpy(rng.uniform(0, 255, (40, 50)).astype(np.float32))
         assert torch.equal(fast.suppressed_score(img), fast.nms3(fast.fast_score(img)))
+        best, arg = fast.suppressed_cells_pyramid([img], **RANK).level(0)
+        ref_best, ref_arg = fast.rank_cells(fast.nms3(fast.fast_score(img)), **RANK)
+        assert torch.equal(best, ref_best) and torch.equal(arg, ref_arg)
         q, t = _features(rng, 2, 30), _features(rng, 2, 40)
         r = torch.full((2, 30), 80.0)
         got = matching.masked_best_two(*q, r, *t)
         ref = matching.masked_best_two_plain(*q, r, *t)
         for g, e in zip(got, ref):
             assert torch.equal(g, e)
+        m = matching.match_projection(*q, *t, r, max_dist=120, nn_ratio=0.95)
+        e = matching.match_projection_plain(*q, *t, r, max_dist=120, nn_ratio=0.95)
+        assert torch.equal(m.ok, e.ok) and torch.equal(m.dist, e.dist) and torch.equal(m.idx, e.idx)
         assert kernels.LAUNCHES == {"fast_score_nms": 0, "masked_best_two": 0}
 
-    def test_wrappers_refuse_cpu_tensors(self, rng, monkeypatch):
-        monkeypatch.setattr(kernels, "_load", lambda: pytest.fail("checks come before the build"))
-        with pytest.raises(ValueError, match="CUDA"):
-            kernels.fast_score_nms(torch.zeros(8, 8))
+    @pytest.mark.parametrize("wrapper", ["fast_score_nms", "fast_cells_pyramid", "masked_best_two", "masked_match"])
+    def test_wrappers_refuse_cpu_tensors(self, rng, monkeypatch, wrapper):
+        monkeypatch.setattr(kernels, "_load", lambda src: pytest.fail("checks come before the build"))
         q, t = _features(rng, 1, 4), _features(rng, 1, 5)
+        calls = {
+            "fast_score_nms": lambda: kernels.fast_score_nms(torch.zeros(8, 8)),
+            "fast_cells_pyramid": lambda: kernels.fast_cells_pyramid([torch.zeros(40, 40)], 16, 19, 20.0, 7.0),
+            "masked_best_two": lambda: kernels.masked_best_two(*q, torch.ones(1, 4), *t, -1, 1),
+            "masked_match": lambda: kernels.masked_match(*q, torch.ones(1, 4), *t, -1, 1, 100, 0.9),
+        }
         with pytest.raises(ValueError, match="CUDA"):
-            kernels.masked_best_two(*q, torch.ones(1, 4), *t, -1, 1)
+            calls[wrapper]()
+
+    def test_cell_form_refuses_other_cells_and_too_many_levels(self):
+        with pytest.raises(ValueError, match="cell"):
+            kernels.fast_cells_pyramid([torch.zeros(40, 40)], 8, 19, 20.0, 7.0)
+        with pytest.raises(ValueError, match="levels"):
+            kernels.fast_cells_pyramid([torch.zeros(40, 40)] * 17, 16, 19, 20.0, 7.0)
+
+
+def _entry_points():
+    """Each entry point that creates tensors, as a call taking `device`."""
+    from orb_slam2v2_1_tpu_torch.models import map_state, offline, tracking
+    from orb_slam2v2_1_tpu_torch.utils import config, synthetic
+
+    cfg = config.SlamConfig(fx=60.0, fy=60.0, cx=48.0, cy=40.0, width=96, height=80, n_features=100,
+                            max_keyframes=4, max_map_points=256, bf=10.0)
+    rng = np.random.default_rng(3)
+    state_np = map_state.to_numpy(map_state.empty_map(2, 16, 8, device="cpu"))
+    frame_np = {name: np.zeros((4, 8) if name == "desc" else (4, 2) if name == "xy" else (4,),
+                               np.uint32 if name == "desc" else np.float32)
+                for name in tracking.FrameData._fields}
+    frames = np.zeros((2, 80, 96), np.float32)
+
+    def track(device):
+        # The device is resolved before any frame is touched; on the CPU the
+        # blank frames then fail in map initialization or run through.
+        return offline.track_sequence_rgbd(frames, frames + 1.0, cfg, device=device)
+
+    return {
+        "make_room": lambda device: synthetic.make_room(rng, tex_size=16, device=device).tex.device,
+        "orbit_frames": lambda device: synthetic.orbit_frames(cfg, 1, device=device)[0].device,
+        "empty_map": lambda device: map_state.empty_map(2, 16, 8, device=device).kf_pose.device,
+        "from_numpy": lambda device: map_state.from_numpy(state_np, device=device).kf_pose.device,
+        "frame_from_numpy": lambda device: tracking.frame_from_numpy(frame_np, device=device).xy.device,
+        "track_sequence_rgbd": track,
+    }
+
+
+class TestDeviceDefault:
+    """Entry points run on the card unless asked for the CPU: with no device
+    given and no card they raise; they do not carry on on the CPU."""
+
+    @pytest.mark.parametrize("name", ["make_room", "orbit_frames", "empty_map", "from_numpy",
+                                      "frame_from_numpy", "track_sequence_rgbd"])
+    def test_raises_without_card_and_runs_on_cpu(self, monkeypatch, name):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        call = _entry_points()[name]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(None)
+        out = call("cpu")
+        if name == "track_sequence_rgbd":
+            poses, ok, state = out
+            assert poses.shape == (2, 4, 4) and state.kf_pose.device.type == "cpu"
+        else:
+            assert out.type == "cpu"
+
+    def test_tensors_stay_where_they_are(self, monkeypatch):
+        """Frames given as tensors decide the device; no card is asked for."""
+        from orb_slam2v2_1_tpu_torch.models import offline
+        from orb_slam2v2_1_tpu_torch.utils import config
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        cfg = config.SlamConfig(fx=60.0, fy=60.0, cx=48.0, cy=40.0, width=96, height=80, n_features=100,
+                                max_keyframes=4, max_map_points=256, bf=10.0)
+        frames = torch.zeros((2, 80, 96))
+        _, _, state = offline.track_sequence_rgbd(frames, frames + 1.0, cfg)
+        assert state.kf_pose.device.type == "cpu"
+
+
+def _assert_match_equal(got, ref):
+    """ok and dist everywhere, idx where ok (elsewhere it is undefined)."""
+    assert torch.equal(got.ok, ref.ok) and torch.equal(got.dist, ref.dist)
+    assert torch.equal(got.idx[ref.ok], ref.idx[ref.ok])
 
 
 @pytest.mark.cuda
@@ -78,14 +184,29 @@ class TestOnCard:
     def test_fast_score_nms_all_levels(self, cuda_device, rng):
         """Bit-exact against the plain version over whole levels of a
         640x480 image, borders included."""
-        img = torch.from_numpy(rng.uniform(0, 255, (480, 640)).astype(np.float32)).to(cuda_device)
-        for lvl in image.build_pyramid(img, 8, 1.2):
-            lvl = lvl.contiguous()
+        for lvl in _pyramid(rng, cuda_device):
             got = kernels.fast_score_nms(lvl)
             torch.cuda.synchronize()
             assert torch.equal(got, fast.nms3(fast.fast_score(lvl)))
 
-    @pytest.mark.parametrize("b,q,n", [(1, 1000, 1000), (1, 4096, 1000), (20, 1000, 1000), (3, 7, 5)])
+    @pytest.mark.parametrize("noise", [True, False])
+    @pytest.mark.parametrize("shape", [(480, 640), (97, 133)])
+    def test_fast_cells_pyramid(self, cuda_device, rng, shape, noise):
+        """The cell form, one launch for all levels, bit-exact against
+        `rank_cells` of the plain suppressed score: ties and empty cells
+        (noise), ragged edges (no level is a multiple of 16)."""
+        levels = _pyramid(rng, cuda_device, shape, noise)
+        kernels.reset_launch_counts()
+        got = fast.suppressed_cells_pyramid(levels, **RANK)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["fast_score_nms"] == 1
+        for l, lvl in enumerate(levels):
+            best, arg = got.level(l)
+            ref_best, ref_arg = fast.rank_cells(fast.nms3(fast.fast_score(lvl)), **RANK)
+            assert torch.equal(best, ref_best) and torch.equal(arg, ref_arg)
+            assert not got.best[l, best.numel():].any()  # the row's padding is zero
+
+    @pytest.mark.parametrize("b,q,n", SEARCH_SHAPES)
     def test_masked_best_two_shapes(self, cuda_device, rng, b, q, n):
         """Exact: best and second everywhere, idx wherever a candidate exists
         (and 0 where none does, as the plain version)."""
@@ -99,6 +220,20 @@ class TestOnCard:
         for g, e in zip(got, ref):
             assert torch.equal(g, e)
 
+    @pytest.mark.parametrize("b,q,n", SEARCH_SHAPES)
+    def test_match_projection_shapes(self, cuda_device, rng, b, q, n):
+        """The match form against the plain path on the same tensors: many
+        queries share a best target (duplicated descriptors), so the
+        one-to-one resolution and its tie rule are exercised."""
+        qf, tf = _features(rng, b, q, cuda_device), _features(rng, b, n, cuda_device)
+        r = torch.from_numpy(rng.uniform(0, 60, (b, q)).astype(np.float32)).to(cuda_device)
+        kernels.reset_launch_counts()
+        got = matching.match_projection(*qf, *tf, r, max_dist=120, nn_ratio=0.95)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["masked_best_two"] == 1
+        ref = matching.match_projection_plain(*qf, *tf, r, max_dist=120, nn_ratio=0.95)
+        _assert_match_equal(got, ref)
+
     def test_wrapper_checks(self, cuda_device, rng):
         with pytest.raises(ValueError, match="dtype"):
             kernels.fast_score_nms(torch.zeros(8, 8, dtype=torch.float64, device=cuda_device))
@@ -107,3 +242,5 @@ class TestOnCard:
         q, t = _features(rng, 1, 4, cuda_device), _features(rng, 1, 5, cuda_device)
         with pytest.raises(ValueError, match="shape"):
             kernels.masked_best_two(*q, torch.ones(1, 3, device=cuda_device), *t, -1, 1)
+        with pytest.raises(ValueError, match="max_dist"):
+            kernels.masked_match(*q, torch.ones(1, 4, device=cuda_device), *t, -1, 1, 1 << 20, 0.9)

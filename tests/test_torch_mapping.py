@@ -66,7 +66,7 @@ def assert_state_close(ref: dict, got, atol=1e-4, rtol=1e-4, fields=None):
 def scene():
     """(numpy snapshot of the JAX state before inserting frame 20's keyframe,
     the JAX frame 20 as numpy, kf_id it will get, frame-0 images)."""
-    imgs, deps, _ = synthetic.orbit_frames(CFG, 21, total=321)
+    imgs, deps, _ = synthetic.orbit_frames(CFG, 21, device="cpu", total=321)
     imgs, deps = imgs.numpy(), deps.numpy()
     K = jnp.asarray(K_NP)
     dist = jnp.zeros(5, jnp.float32)
@@ -115,7 +115,7 @@ def stages(scene):
 
 
 def T(s: dict):
-    return map_state.from_numpy(s)
+    return map_state.from_numpy(s, device="cpu")
 
 
 class TestMapState:
@@ -124,12 +124,12 @@ class TestMapState:
         back = map_state.to_numpy(T(st))
         for k in st:
             np.testing.assert_array_equal(back[k], st[k], err_msg=k)
-        fr = tracking.frame_to_numpy(tracking.frame_from_numpy(scene["frame"]))
+        fr = tracking.frame_to_numpy(tracking.frame_from_numpy(scene["frame"], device="cpu"))
         np.testing.assert_array_equal(fr["desc"], scene["frame"]["desc"])
 
     def test_empty_map(self):
         ref = NP(jms.empty_map(8, 64, 32))
-        assert_state_close(ref, map_state.empty_map(8, 64, 32))
+        assert_state_close(ref, map_state.empty_map(8, 64, 32, device="cpu"))
 
     def test_graph_structure_exact(self, scene):
         st = scene["state"]
@@ -159,8 +159,8 @@ class TestMapState:
         ref_state, ref_kf, ref_n = jinit.create_initial_map_depth(
             jms.empty_map(CFG.max_keyframes, CFG.max_map_points, CFG.n_features), jf, K)
         got_state, got_kf, got_n = initialization.create_initial_map_depth(
-            map_state.empty_map(CFG.max_keyframes, CFG.max_map_points, CFG.n_features),
-            tracking.frame_from_numpy(fnp), KT)
+            map_state.empty_map(CFG.max_keyframes, CFG.max_map_points, CFG.n_features, device="cpu"),
+            tracking.frame_from_numpy(fnp, device="cpu"), KT)
         assert int(got_kf) == int(ref_kf) and int(got_n) == int(ref_n)
         assert_state_close(NP(ref_state), got_state)
 
@@ -169,7 +169,7 @@ class TestKeyframeInsertionStages:
     def test_append_and_depth_points(self, scene, stages):
         s, kf = stages
         got, got_kf = frontend._append_keyframe_body(
-            T(s["input"]), tracking.frame_from_numpy(scene["frame"]), KT, BF, DL)
+            T(s["input"]), tracking.frame_from_numpy(scene["frame"], device="cpu"), KT, BF, DL)
         assert int(got_kf) == kf
         assert_state_close(s["append"], got)
 

@@ -202,9 +202,13 @@ class TestFast:
         b = 19
         np.testing.assert_allclose(got[b:-b, b:-b], ref[b:-b, b:-b], atol=1e-4)
 
-    def test_select_keypoints_exact(self, rng):
-        """Exact, ties included: scores quantized to few values so cells tie."""
-        score = np.round(rng.uniform(0, 40, (120, 150)) / 8) * 8
+    @pytest.mark.parametrize("shape", [(120, 150), (97, 133)])
+    def test_select_keypoints_exact(self, rng, shape):
+        """Exact at two ragged shapes, ties and empty cells included: scores
+        are quantized to few values so cells tie, and a blank band leaves
+        cells empty."""
+        score = np.round(rng.uniform(0, 40, shape) / 8) * 8
+        score[40:75, 30:90] = 0.0
         score = score.astype(np.float32)
         for n, suppress in ((60, True), (150, False), (200, False)):
             gy, gr, gv = fast.select_keypoints(T(score), n, suppress=suppress)
@@ -213,6 +217,82 @@ class TestFast:
             np.testing.assert_array_equal(N(gr), np.asarray(rr))
             np.testing.assert_array_equal(N(gv), np.asarray(rv))
         assert fast.level_feature_counts(1000, 8, 1.2) == jfast.level_feature_counts(1000, 8, 1.2)
+
+    @pytest.mark.parametrize("shape", [(120, 150), (97, 133)])
+    def test_select_keypoints_split_exact(self, rng, shape):
+        """`rank_cells` (what kernel 1's epilogue computes on the card) then
+        `select_from_cells` (what stays in PyTorch) is `select_keypoints`, and
+        equals the reference's, with thresholds other than the defaults."""
+        score = np.round(rng.uniform(0, 40, shape) / 8) * 8
+        score[:, 60:100] = 0.0
+        score = score.astype(np.float32)
+        kw = dict(cell=16, border=21, threshold=24.0, min_threshold=8.0)
+        best, arg = fast.rank_cells(T(score), **kw)
+        assert best.shape == arg.shape == (-(-shape[0] // 16), -(-shape[1] // 16))
+        assert best.dtype == torch.float32 and arg.dtype == torch.int64
+        got = fast.select_from_cells(best, arg, 70, 16)
+        whole = fast.select_keypoints(T(score), 70, suppress=False, **kw)
+        ref = jfast.select_keypoints(jnp.asarray(score), 70, suppress=False, **kw)
+        for g, w, r in zip(got, whole, ref):
+            np.testing.assert_array_equal(N(g), N(w))
+            np.testing.assert_array_equal(N(g), np.asarray(r))
+
+    def test_rank_cells_rule(self, rng):
+        """The cell reduction spelled out in numpy: the first maximal entry
+        in row-major order wins a tie, an empty cell gives (0, index 0), and
+        the ragged edge counts as zeros."""
+        score = (np.round(rng.uniform(0, 40, (70, 90)) / 10) * 10).astype(np.float32)
+        score[16:48, 16:48] = 0.0  # four empty cells
+        best, arg = fast.rank_cells(T(score), cell=16, border=3, threshold=20.0, min_threshold=7.0)
+        h, w = score.shape
+        rank = np.where(score >= 7.0, score, 0.0).astype(np.float32)
+        rank[:3] = rank[-3:] = 0.0
+        rank[:, :3] = rank[:, -3:] = 0.0
+        rank = np.where(rank >= 20.0, rank + np.float32(1e4), rank).astype(np.float32)
+        padded = np.zeros((80, 96), np.float32)
+        padded[:h, :w] = rank
+        for cy in range(5):
+            for cx in range(6):
+                blk = padded[cy * 16:(cy + 1) * 16, cx * 16:(cx + 1) * 16].reshape(-1)
+                assert float(best[cy, cx]) == blk.max()
+                assert int(arg[cy, cx]) == int(np.flatnonzero(blk == blk.max())[0])
+        assert float(best[1, 1]) == 0.0 and int(arg[1, 1]) == 0
+
+    def test_pyramid_form_equals_per_level(self, rng):
+        """`suppressed_cells_pyramid` over the levels of a pyramid equals the
+        per-level form `rank_cells(suppressed_score(level))`."""
+        img = random_textured(rng, 120, 160)
+        levels = image.build_pyramid(T(img), 4, 1.2)
+        got = fast.suppressed_cells_pyramid(levels, cell=16, border=19, threshold=20.0, min_threshold=7.0)
+        assert got.best.shape == got.arg.shape == (len(levels), 8 * 10)
+        for l, lvl in enumerate(levels):
+            best, arg = got.level(l)
+            rb, ra = fast.rank_cells(fast.suppressed_score(lvl), 16, 19, 20.0, 7.0)
+            assert torch.equal(best, rb) and torch.equal(arg, ra)
+            assert float(best.max()) > 1e4  # the texture has strong corners
+            assert not got.best[l, best.numel():].any()
+
+    def test_pyramid_selection_equals_per_level(self, rng):
+        """`select_from_pyramid_cells` (one sort for all levels) equals
+        `select_from_cells` level by level, exactly: ties, empty cells, and a
+        level that is asked for more keypoints than it has cells."""
+        levels = [T((np.round(rng.uniform(0, 40, shape) / 8) * 8).astype(np.float32))
+                  for shape in ((120, 150), (97, 133), (64, 64))]
+        counts = [50, 30, 40]  # the last level has 16 cells
+        kw = dict(cell=16, border=19, threshold=20.0, min_threshold=7.0)
+        per_level = [fast.rank_cells(lvl, **kw) for lvl in levels]
+        stride = max(max(b.numel() for b, _ in per_level), max(counts))
+        best = torch.zeros((3, stride))
+        arg = torch.full((3, stride), 77, dtype=torch.int64)  # padding of arg is never read
+        for l, (b, a) in enumerate(per_level):
+            best[l, :b.numel()], arg[l, :a.numel()] = b.reshape(-1), a.reshape(-1)
+        cells = fast.PyramidCells(best, arg, tuple(tuple(b.shape) for b, _ in per_level))
+        got = fast.select_from_pyramid_cells(cells, counts, 16)
+        for (b, a), n, g in zip(per_level, counts, got):
+            for x, y in zip(g, fast.select_from_cells(b, a, n, 16)):
+                assert x.dtype == y.dtype and torch.equal(x, y)
+        with pytest.raises(ValueError, match="rows"):
+            fast.select_from_pyramid_cells(cells, [stride + 1, 1, 1], 16)
 
 
 class TestOrb:

@@ -39,7 +39,7 @@ N_FRAMES = 16
 
 @pytest.fixture(scope="module")
 def frames():
-    imgs, deps, gt = synthetic.orbit_frames(config.SlamConfig(**KW), N_FRAMES, total=321)
+    imgs, deps, gt = synthetic.orbit_frames(config.SlamConfig(**KW), N_FRAMES, device="cpu", total=321)
     return imgs.numpy(), deps.numpy(), gt
 
 
@@ -48,7 +48,7 @@ def runs(frames):
     imgs, deps, _ = frames
     ref = joff.track_sequence_rgbd(imgs, deps, jconfig.SlamConfig(**KW))
     sync.reset()
-    got = offline.track_sequence_rgbd(imgs, deps, config.SlamConfig(**KW))
+    got = offline.track_sequence_rgbd(imgs, deps, config.SlamConfig(**KW), device="cpu")
     return ref, got, sync.COUNT["syncs"]
 
 
@@ -83,7 +83,7 @@ def test_chunked_equals_whole(frames, runs):
     """Staging frames in chunks changes nothing."""
     imgs, deps, _ = frames
     _, (poses, ok, state), _ = runs
-    p2, ok2, s2 = offline.track_sequence_rgbd(imgs[:12], deps[:12], config.SlamConfig(**KW), chunk=5)
+    p2, ok2, s2 = offline.track_sequence_rgbd(imgs[:12], deps[:12], config.SlamConfig(**KW), chunk=5, device="cpu")
     np.testing.assert_array_equal(ok2, ok[:12])
     np.testing.assert_array_equal(p2, poses[:12])
 
@@ -91,7 +91,8 @@ def test_chunked_equals_whole(frames, runs):
 def test_loop_closer_not_ported(frames):
     imgs, deps, _ = frames
     with pytest.raises(NotImplementedError):
-        offline.track_sequence_rgbd(imgs[:2], deps[:2], config.SlamConfig(**KW), loop_closer=object())
+        offline.track_sequence_rgbd(imgs[:2], deps[:2], config.SlamConfig(**KW), loop_closer=object(),
+                                    device="cpu")
 
 
 def test_load_settings_parity(tmp_path):
