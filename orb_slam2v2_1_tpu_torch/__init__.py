@@ -1,4 +1,4 @@
-"""orb_slam2v2_1_tpu_torch — the RGB-D tracking-and-mapping path in PyTorch.
+"""orb_slam2v2_1_tpu_torch — RGB-D tracking, mapping and loop closing in PyTorch.
 
 A port of the repository's JAX package to PyTorch with hand-written CUDA kernels
 for Hopper (`csrc/`, loaded by `kernels.py`). The module layout and the public

@@ -35,10 +35,14 @@ import sys
 BENCH = dict(fx=550.0, fy=550.0, cx=320.0, cy=240.0, width=640, height=480, n_features=1000,
              max_keyframes=128, max_map_points=16384, fps=10.0, bf=44.0, th_depth=100.0)
 ORBIT_TOTAL = 321
-# Motion model, local map, and the batched fuse of a keyframe insertion.
-SEARCH_SHAPES = (("motion", (1, 1000, 1000)), ("local_map", (1, 4096, 1000)), ("fuse", (20, 1000, 1000)))
-# (max_dist, nn_ratio) of the three callers of match_projection.
-SEARCH_PARAMS = {"motion": (100, 0.9), "local_map": (100, 0.8), "fuse": (50, 1.0)}
+# Motion model, local map, and the batched fuse of a keyframe insertion; then
+# loop closing's searches: one Sim3 candidate's projection search, and the loop
+# fusion at its smallest buckets (16 keyframes x 4096 loop-side points).
+SEARCH_SHAPES = (("motion", (1, 1000, 1000)), ("local_map", (1, 4096, 1000)), ("fuse", (20, 1000, 1000)),
+                 ("sim3", (1, 1000, 1000)), ("loop_fuse", (16, 4096, 1000)))
+# (max_dist, nn_ratio) of the callers of match_projection.
+SEARCH_PARAMS = {"motion": (100, 0.9), "local_map": (100, 0.8), "fuse": (50, 1.0),
+                 "sim3": (100, 1.0), "loop_fuse": (50, 1.0)}
 
 
 def card_line() -> str:
@@ -200,9 +204,9 @@ def main() -> int:
     for name, (b, q, n) in SEARCH_SHAPES:
         qf, r, tf = search_inputs(rng, dev, b, q, n)
         max_dist, ratio = SEARCH_PARAMS[name]
-        cases[f"masked_best_two best-two {b}x{q}x{n}"] = (
+        cases[f"masked_best_two best-two {name} {b}x{q}x{n}"] = (
             lambda qf=qf, r=r, tf=tf: matching.masked_best_two(*qf, r, *tf))
-        cases[f"match_projection {b}x{q}x{n}"] = (
+        cases[f"match_projection {name} {b}x{q}x{n}"] = (
             lambda qf=qf, r=r, tf=tf, max_dist=max_dist, ratio=ratio: matching.match_projection(
                 *qf, *tf, r, max_dist=max_dist, nn_ratio=ratio))
 

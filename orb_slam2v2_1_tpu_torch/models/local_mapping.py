@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import ba, hamming, lie, matching
+from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from ..ops.topk import scatter_last, set_drop, stable_topk
 from ..ops.triangulate import projection_matrix, triangulate
@@ -105,9 +106,9 @@ def create_map_points(state: MapState, kf_id, K, bf, voc=None) -> MapState:
 
 def _triangulate_candidates(state: MapState, kf1, kf2, pair_ok, K, bf, voc=None):
     """Match + triangulate + audit keyframe kf1 against each of kf2 (T,)
-    without mutating the map. Returns (good (T,N), X (T,N,3), m_idx (T,N))."""
-    if voc is not None:
-        raise NotImplementedError("vocabulary-pruned triangulation search is not ported yet")
+    without mutating the map; with a vocabulary, only keypoints sharing a
+    coarse vocabulary-tree node are matched (SearchForTriangulation's
+    FeatureVector alignment). Returns (good (T,N), X (T,N,3), m_idx (T,N))."""
     N = state.n_kp
     dev = state.kf_pose.device
     pose1 = state.kf_pose[kf1]
@@ -154,6 +155,10 @@ def _triangulate_candidates(state: MapState, kf1, kf2, pair_ok, K, bf, voc=None)
     epi_ok = epi_d2 < 3.84 * sigma2_2[:, None, :]
 
     mask = free1[None, :, None] & free2[:, None, :] & epi_ok
+    if voc is not None:
+        n1 = vocab_ops.assign_nodes(voc, state.kf_desc[kf1])
+        n2 = vocab_ops.assign_nodes(voc, state.kf_desc[kf2])
+        mask = mask & (n1[None, :, None] == n2[:, None, :])
     m = matching.match_nn(d1, d2, mask, max_dist=matching.TH_LOW, nn_ratio=1.0)
     dang = state.kf_angle[kf1][None, :] - _take(state.kf_angle[kf2], m.idx)
     ok = matching.rotation_consistency(dang, m.ok)

@@ -1,10 +1,11 @@
 """Whole-sequence RGB-D SLAM driver.
 
-Port of the JAX package's `models/offline.py` without loop closing. The
-reference runs the sequence as one `lax.scan` with `lax.cond` branches for
-keyframe insertion and capacity culling; here the scan step is a Python loop
-and those branches are host branches. Each frame reads its three decision
-flags (tracked, insert, blocked) in one device-to-host transfer.
+Port of the JAX package's `models/offline.py`. The reference runs the
+sequence as one `lax.scan` with `lax.cond` branches for keyframe insertion
+and capacity culling; here the scan step is a Python loop and those branches
+are host branches. Each frame reads its three decision flags (tracked,
+insert, blocked) in one device-to-host transfer. With a loop closer the
+sequence runs in chunks with a loop-closing round between them.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .. import device as device_mod
 from .. import sync
 from ..ops import orb
 from . import frontend, initialization, local_mapping
+from . import keyframe_database as kdb
 from .map_state import MapState, empty_map
 from .tracking import FrameData
 
@@ -60,6 +62,21 @@ def _nearest_kf(state: MapState, pose: torch.Tensor) -> torch.Tensor:
     d = d + 2.0 * (1.0 - R[:, 2, :] @ pose[:3, :3][2, :])
     d = torch.where(state.kf_valid, d, float("inf"))
     return torch.argmin(d)
+
+
+class _CellBox:
+    """Single-threaded stand-in for a locked map box in the chunked run:
+    the detached GBA service interface (read / mutate) over a plain cell."""
+
+    def __init__(self, state: MapState):
+        self.state = state
+
+    def read(self):
+        return self.state, 0
+
+    def mutate(self, fn):
+        self.state = fn(self.state)
+        return self.state
 
 
 def make_carry0(state: MapState, first: FrameData) -> ScanCarry:
@@ -146,14 +163,42 @@ def run_sequence_carry(images, depths, carry: ScanCarry, K, dist, bf, depth_limi
     return carry, torch.stack(poses), np.asarray(oks, bool), torch.stack(T_rels), torch.stack(refs)
 
 
+def _loop_round(loop_closer, carry: ScanCarry, last_seq: int):
+    """The loop stage after a chunk: one batched add + detect for the
+    keyframes the chunk inserted, any accepted closure applied to the live
+    map, and the detached GBA started, aborted or merged. Returns (carry,
+    last_seq)."""
+    state = carry.state
+    kf_seq, kf_valid = sync.host_numpy(state.kf_seq, state.kf_valid)
+    new = sorted((int(kf_seq[i]), i) for i in range(len(kf_seq)) if kf_valid[i] and kf_seq[i] > last_seq)
+    if new:
+        last_seq = new[-1][0]
+    moved = False
+    for slot, cand, S12 in loop_closer.detect_batch(state, [slot for _, slot in new], int(kf_valid.sum())):
+        state = loop_closer.apply_closure(state, slot, cand, S12)
+        moved = True
+    if loop_closer.detached_gba:
+        # The solve overlaps the next chunk's tracking; a merged result
+        # re-anchors the keyframes born meanwhile.
+        box = _CellBox(state)
+        moved |= loop_closer.service_gba(box)
+        state = box.state
+    # The map moved under the motion model after a closure or a merge.
+    return carry._replace(state=state, have_velocity=carry.have_velocity and not moved), last_seq
+
+
 def track_sequence_rgbd(images, depths, cfg, loop_closer=None,
                         chunk: int | None = None, voc=None, device=None):
     """Init on frame 0, track the rest. images/depths are (N,H,W) numpy
     arrays or tensors; tensors stay on their device, numpy frames go to
-    `device` (None: the card; raises without one) one at a time. Returns (poses (N,4,4) numpy
-    incl. frame 0, ok (N,) numpy, state)."""
-    if loop_closer is not None:
-        raise NotImplementedError("loop closing is not ported yet")
+    `device` (None: the card; raises without one) one at a time. Returns
+    (poses (N,4,4) numpy incl. frame 0, ok (N,) numpy, state).
+
+    With `loop_closer` and `chunk`, a loop-closing round runs between chunks
+    (BoW update, detection, Sim3, correction and GBA for every keyframe the
+    chunk inserted), so the latency of a closure is bounded by the chunk
+    length; the loop closer's vocabulary also prunes the reference-keyframe
+    and triangulation searches unless `voc` is given."""
     if device is None and torch.is_tensor(images):
         device = images.device
     device = device_mod.resolve(device)
@@ -173,7 +218,17 @@ def track_sequence_rgbd(images, depths, cfg, loop_closer=None,
     state, _, _ = initialization.create_initial_map_depth(state, f0, K)
     f0 = f0._replace(mp=state.kf_mp[0])
     carry = make_carry0(state, f0)
+    if voc is None and loop_closer is not None:
+        voc = loop_closer.vocab
     scan_args = (K, dist, bf, depth_limit, ocfg, cfg.width, cfg.height, int(cfg.fps), voc)
+    loop_rounds = loop_closer is not None and chunk is not None
+    if loop_rounds:
+        if loop_closer.kf_counter == 0:
+            # Register the initial keyframe with the BoW database.
+            loop_closer.db = kdb.add_keyframe(loop_closer.db, loop_closer.vocab, 0,
+                                              state.kf_desc[0], state.kf_kp_valid[0])
+            loop_closer.kf_counter = 1
+        last_seq = sync.host(torch.amax(torch.where(state.kf_valid, state.kf_seq, -1)))
 
     n = images.shape[0]
     step = n if chunk is None else chunk
@@ -184,7 +239,14 @@ def track_sequence_rgbd(images, depths, cfg, loop_closer=None,
         carry, poses_c, ok_c, _, _ = run_sequence_carry(images[s:e], depths[s:e], carry, *scan_args)
         pieces_p.append(poses_c.cpu().numpy())
         pieces_ok.append(ok_c)
+        if loop_rounds:
+            carry, last_seq = _loop_round(loop_closer, carry, last_seq)
         s = e
+    if loop_rounds and loop_closer.detached_gba:
+        box = _CellBox(carry.state)
+        loop_closer.service_gba(box)
+        loop_closer.finalize_gba(box)
+        carry = carry._replace(state=box.state)
     poses = np.concatenate([np.eye(4, dtype=np.float32)[None], *pieces_p])
     ok = np.concatenate([np.ones(1, bool), *pieces_ok])
     return poses, ok, carry.state

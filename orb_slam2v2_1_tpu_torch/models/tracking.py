@@ -3,8 +3,7 @@
 Port of the JAX package's `models/tracking.py`. Acceptance thresholds are
 the reference's (>= 10 inliers after motion-model tracking, >= 30 after
 local-map tracking, decided by the callers). The temporal visual-odometry
-points (`vo_points=True`) and the vocabulary-pruned reference search
-(`voc`) are not ported yet and raise NotImplementedError.
+points (`vo_points=True`) are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ import torch
 
 from .. import device as device_mod
 from ..ops import ba, hamming, matching
+from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from ..ops.topk import set_drop, stable_topk
 from .map_state import MapState, _mark
@@ -142,14 +142,17 @@ def track_motion_model(state: MapState, cur: FrameData, last: FrameData, T_pred,
 def track_reference_keyframe(state: MapState, cur: FrameData, ref_kf, T_init, K, bf, voc=None):
     """Match against the reference keyframe without a motion prior
     (Tracking::TrackReferenceKeyFrame): TH_LOW, ratio 0.7, rotation
-    consistency, one-to-one."""
-    if voc is not None:
-        raise NotImplementedError("vocabulary-pruned reference search is not ported yet")
+    consistency, one-to-one. With a vocabulary, candidate pairs are pruned
+    to those sharing a coarse vocabulary-tree node (SearchByBoW's
+    FeatureVector alignment, as a mask on the dense match matrix)."""
     N = cur.xy.shape[0]
     q_desc = hamming.unpack_pm1(state.kf_desc[ref_kf])
     q_mp = state.kf_mp[ref_kf]
     q_valid = (q_mp >= 0) & state.kf_kp_valid[ref_kf] & state.mp_valid[torch.clamp(q_mp, min=0).long()]
     mask = q_valid[:, None] & cur.kp_valid[None, :]
+    if voc is not None:
+        nq = vocab_ops.assign_nodes(voc, state.kf_desc[ref_kf])
+        mask = mask & (nq[:, None] == vocab_ops.assign_nodes(voc, cur.desc)[None, :])
     m = matching.match_nn(q_desc, cur.desc_pm1, mask, max_dist=matching.TH_LOW, nn_ratio=0.7)
     dang = state.kf_angle[ref_kf] - cur.angle[m.idx]
     ok = matching.rotation_consistency(dang, m.ok)

@@ -1,14 +1,19 @@
-"""Bundle adjustment: motion-only LM and the structured local-BA window.
+"""Bundle adjustment: motion-only LM, the structured local-BA window, and
+the joint BA over an observation list.
 
 Port of the JAX package's `ops/ba.py`: `pose_optimization` (the analog of
-Optimizer::PoseOptimization) and the camera-major window solver
-`bundle_adjust_window` (Optimizer::LocalBundleAdjustment). The COO
-Schur/PCG engine and `bundle_adjust` serve global BA, which belongs to loop
-closing and is not ported yet.
+Optimizer::PoseOptimization), the camera-major window solver
+`bundle_adjust_window` (Optimizer::LocalBundleAdjustment), and the COO
+engine `bundle_adjust` / `ba_step_count_lam` that global BA runs on
+(landmarks eliminated by the Schur complement; the reduced camera system is
+solved densely by Cholesky, or matrix-free by block-Jacobi PCG).
 
-The reference's `while_loop`s stop on an early-exit flag; here each LM
-iteration reads that flag once from the device (`sync.host`), so the
-iteration count, and with it every result, is the reference's.
+The reference's `while_loop`s stop on an early-exit flag. In
+`pose_optimization` and the window solver each LM iteration reads that flag
+once from the device (`sync.host`); the observation-list solver masks the
+iterations after the flag instead and hands the flag back unread, so a chunk
+of iterations costs its caller one read. Either way the iterations that take
+effect, and with them every result, are the reference's.
 
 chi2 thresholds and Huber deltas: 5.991 (mono, 2 dof), 7.815 (stereo, 3 dof).
 """
@@ -21,7 +26,7 @@ import torch
 
 from .. import sync
 from . import lie
-from .topk import scatter_last
+from .topk import scatter_last, segment_sum, segments
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -385,3 +390,234 @@ def bundle_adjust_window(win: BAWindow, iters1: int = 5, iters2: int = 10):
     win, _ = ba_window_steps(win, iters=iters1, robust=True)
     win = classify_outliers_window(win)
     return ba_window_steps(win, iters=iters2, robust=False)
+
+
+# ---------------------------------------------------------------------------
+# Joint BA over an observation list (global BA)
+# ---------------------------------------------------------------------------
+
+
+class BAProblem(NamedTuple):
+    poses: torch.Tensor  # (C,4,4) Tcw
+    points: torch.Tensor  # (P,3)
+    obs: Obs
+    cam_fixed: torch.Tensor  # (C,) bool: cameras held constant
+    K: torch.Tensor  # (4,)
+    bf: float
+
+
+def _residual_jac_batch(Tcw, pw, target, K, bf):
+    """Residuals (O,3) and Jacobians (O,3,6) in the pose tangent [rho, phi]
+    of the left-multiplied update, (O,3,3) in the point, and the
+    behind-camera flags, for poses (O,4,4) and points (O,3). The third row is
+    the stereo disparity term; callers zero it for mono observations."""
+    R = Tcw[:, :3, :3]
+    pc = (R @ pw[..., None])[..., 0] + Tcw[:, :3, 3]
+    x, y = pc[:, 0], pc[:, 1]
+    iz = 1.0 / torch.clamp(pc[:, 2], min=1e-6)
+    iz2 = iz * iz
+    fx, fy = K[0], K[1]
+
+    u = fx * x * iz + K[2]
+    v = fy * y * iz + K[3]
+    r = torch.stack([u, v, u - bf * iz], dim=-1) - target
+
+    zero = torch.zeros_like(x)
+    row0 = torch.stack([fx * iz, zero, -fx * x * iz2], dim=-1)
+    row1 = torch.stack([zero, fy * iz, -fy * y * iz2], dim=-1)
+    row2 = torch.stack([fx * iz, zero, -fx * x * iz2 + bf * iz2], dim=-1)
+    J_pc = torch.stack([row0, row1, row2], dim=-2)  # (O,3,3)
+    J_pose = torch.cat([J_pc, -(J_pc @ lie.hat(pc))], dim=-1)  # J_pc @ [I, -hat(pc)]
+    return r, J_pose, J_pc @ R, pc[:, 2] <= 1e-6
+
+
+def _build_system(prob: BAProblem, robust: bool, inlier: torch.Tensor):
+    """Residuals, Jacobians, IRLS weights, cost, chi2 and behind flags of
+    every observation."""
+    obs = prob.obs
+    rmask = _res_mask(obs.is_stereo)
+    cam = obs.cam_idx.long()
+    r, Jc, Jp, behind = _residual_jac_batch(
+        prob.poses[cam], prob.points[obs.pt_idx.long()], obs.target, prob.K, prob.bf)
+    r = r * rmask
+    Jc = Jc * rmask[..., None]
+    Jp = Jp * rmask[..., None]
+    chi2 = torch.sum(r * r * rmask, dim=-1) * obs.inv_sigma2
+    hw = _huber_weights(obs.is_stereo, chi2, robust)
+    w = obs.inv_sigma2 * hw * obs.valid * inlier
+    # Fixed cameras take no step: zero their Jacobians.
+    Jc = Jc * (~prob.cam_fixed)[cam].to(r.dtype)[:, None, None]
+    cost = torch.sum(chi2 * hw * obs.valid * inlier)
+    return r, Jc, Jp, w, cost, chi2, behind
+
+
+def _cost(prob: BAProblem, robust: bool, inlier: torch.Tensor) -> torch.Tensor:
+    return _build_system(prob, robust, inlier)[4]
+
+
+def _schur_blocks(prob: BAProblem, r, Jc, Jp, w, lam):
+    """The block-diagonal Hessians (damped), the gradient blocks, the
+    inverse of the damped point blocks, and the observations' segments by
+    camera and by point (sums over them are order-exact, see `ops/topk`)."""
+    cam = prob.obs.cam_idx.long()
+    pt = prob.obs.pt_idx.long()
+    cam_seg = segments(cam, prob.poses.shape[0])
+    pt_seg = segments(pt, prob.points.shape[0])
+    Wc = Jc * w[:, None, None]  # (O,3,6)
+    Wp = Jp * w[:, None, None]  # (O,3,3)
+    Hcc = segment_sum(torch.einsum("oia,oib->oab", Jc, Wc), cam_seg)
+    Hpp = segment_sum(torch.einsum("oia,oib->oab", Jp, Wp), pt_seg)
+    gc = segment_sum(torch.einsum("oia,oi->oa", Wc, r), cam_seg)
+    gp = segment_sum(torch.einsum("oia,oi->oa", Wp, r), pt_seg)
+    dev = r.device
+    Hcc_d = Hcc + (lam * torch.diagonal(Hcc, dim1=-2, dim2=-1) + 1e-8)[..., None] * torch.eye(6, device=dev)
+    Hpp_d = Hpp + (lam * torch.diagonal(Hpp, dim1=-2, dim2=-1) + 1e-8)[..., None] * torch.eye(3, device=dev)
+    Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]
+    return cam, pt, cam_seg, pt_seg, Wc, Hcc_d, gc, gp, Hpp_inv
+
+
+def _schur_solve(prob: BAProblem, r, Jc, Jp, w, lam, cg_iters: int):
+    """One damped GN step via landmark Schur elimination + block-Jacobi PCG.
+    The reduced camera matrix S is never formed: S x = (Hcc + lam D) x -
+    Hcp Hpp^-1 Hpc x goes through observation-indexed gathers and segment
+    sums."""
+    cam, pt, cam_seg, pt_seg, Wc, Hcc_d, gc, gp, Hpp_inv = _schur_blocks(prob, r, Jc, Jp, w, lam)
+    Wp = Jp * w[:, None, None]
+
+    def hpc_x(x):  # Hpc @ x_cam -> (P,3)
+        v = torch.einsum("oia,oa->oi", Wc, x[cam])
+        return segment_sum(torch.einsum("oia,oi->oa", Jp, v), pt_seg)
+
+    def hcp_y(y):  # Hcp @ y_point -> (C,6)
+        v = torch.einsum("oia,oa->oi", Wp, y[pt])
+        return segment_sum(torch.einsum("oia,oi->oa", Jc, v), cam_seg)
+
+    def S_apply(x):
+        u = torch.einsum("pab,pb->pa", Hpp_inv, hpc_x(x))
+        return torch.einsum("cab,cb->ca", Hcc_d, x) - hcp_y(u)
+
+    rhs = -(gc - hcp_y(torch.einsum("pab,pb->pa", Hpp_inv, gp)))
+    M_inv = torch.linalg.inv_ex(Hcc_d)[0]  # block-Jacobi preconditioner
+
+    def precond(x):
+        return torch.einsum("cab,cb->ca", M_inv, x)
+
+    x = torch.zeros_like(rhs)
+    res = rhs
+    z = precond(res)
+    p = z
+    for _ in range(cg_iters):
+        Sp = S_apply(p)
+        rz = torch.sum(res * z)
+        alpha = rz / torch.clamp(torch.sum(p * Sp), min=1e-20)
+        x = x + alpha * p
+        res = res - alpha * Sp
+        z = precond(res)
+        beta = torch.sum(res * z) / torch.clamp(rz, min=1e-20)
+        p = z + beta * p
+
+    dx_pt = -torch.einsum("pab,pb->pa", Hpp_inv, gp + hpc_x(x))
+    return x * (~prob.cam_fixed)[:, None], dx_pt
+
+
+def _schur_solve_dense(prob: BAProblem, r, Jc, Jp, w, lam):
+    """One damped GN step with an explicit reduced camera system: the
+    point-camera coupling blocks B (P,C,6,3) are densified, S = Hcc -
+    B Hpp^-1 B^T is one (6C, 3P) x (3P, 6C) product, and the solve is a
+    dense Cholesky. A failed factorization gives a zero step."""
+    C = prob.poses.shape[0]
+    P = prob.points.shape[0]
+    cam, pt, _, _, Wc, Hcc_d, gc, gp, Hpp_inv = _schur_blocks(prob, r, Jc, Jp, w, lam)
+
+    Bo = torch.einsum("oia,oib->oab", Wc, Jp)  # (O,6,3)
+    B = torch.zeros((P, C, 6, 3), dtype=r.dtype, device=r.device)
+    # A (point, camera) pair repeats only where a keyframe holds one point at
+    # two keypoints, and a sum of two terms does not depend on their order.
+    B.index_put_((pt, cam), Bo, accumulate=True)
+    U = torch.einsum("pcax,pxy->pcay", B, Hpp_inv)  # B Hpp^-1
+
+    Bm = B.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
+    Um = U.permute(1, 2, 0, 3).reshape(C * 6, P * 3)
+    S4 = (-(Um @ Bm.T)).reshape(C, 6, C, 6)
+    ar = torch.arange(C, device=r.device)
+    S4[ar, :, ar, :] = S4[ar, :, ar, :] + Hcc_d
+    S = S4.reshape(C * 6, C * 6)
+    free6 = torch.repeat_interleave(~prob.cam_fixed, 6)
+    # Fixed cameras have zeroed Jacobians: pin their rows to the identity so
+    # that S stays SPD; their right-hand side is zero, so their step is too.
+    S = S + torch.diag(torch.where(free6, 0.0, 1.0).to(r.dtype))
+    rhs = -(gc - torch.einsum("pcay,py->ca", U, gp))
+    rhs = rhs * (~prob.cam_fixed)[:, None]
+
+    dx_cam = _spd_solve(S, rhs.reshape(-1)).reshape(C, 6)
+    dx_cam = dx_cam * (~prob.cam_fixed)[:, None]
+    dx_cam = torch.where(torch.all(torch.isfinite(dx_cam)), dx_cam, torch.zeros_like(dx_cam))
+
+    hpc_dx = torch.einsum("pcax,ca->px", B, dx_cam)
+    dx_pt = -torch.einsum("pab,pb->pa", Hpp_inv, gp + hpc_dx)
+    dx_pt = torch.where(torch.all(torch.isfinite(dx_pt)), dx_pt, torch.zeros_like(dx_pt))
+    return dx_cam, dx_pt
+
+
+def ba_step_count_lam(prob: BAProblem, lam0, iters: int = 5, cg_iters: int = 24,
+                      robust: bool = True, dense: bool = False):
+    """Run up to `iters` LM iterations from damping `lam0`; returns (problem,
+    cost, lam, converged). The threaded lam lets a caller split a long solve
+    into chunks between which it can stop, without restarting the damping
+    schedule. The reference leaves its loop at the first converged
+    iteration; here the iterations after it are computed and discarded, so
+    `converged` comes back as a 0-dim tensor that the caller reads once."""
+    dev = prob.poses.device
+    inlier0 = prob.obs.valid.to(torch.float32)
+    lam = torch.as_tensor(lam0, dtype=torch.float32, device=dev)
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    for _ in range(iters):
+        r, Jc, Jp, w, cost0, _, _ = _build_system(prob, robust, inlier0)
+        if dense:
+            dx_cam, dx_pt = _schur_solve_dense(prob, r, Jc, Jp, w, lam)
+        else:
+            dx_cam, dx_pt = _schur_solve(prob, r, Jc, Jp, w, lam, cg_iters)
+        cand = prob._replace(poses=lie.se3_exp(dx_cam) @ prob.poses, points=prob.points + dx_pt)
+        cost1 = _cost(cand, robust, inlier0)
+        accept = cost1 < cost0
+        take = accept & ~done
+        prob = prob._replace(poses=torch.where(take, cand.poses, prob.poses),
+                             points=torch.where(take, cand.points, prob.points))
+        lam = torch.where(done, lam, _lam_update(lam, accept))
+        done = done | (accept & (cost0 - cost1 < 1e-3 * cost0 + 1e-6))
+    # Re-orthonormalize optimized poses; fixed cameras stay bit-identical.
+    ortho = lie.orthonormalize(prob.poses)
+    prob = prob._replace(poses=torch.where(prob.cam_fixed[:, None, None], prob.poses, ortho))
+    return prob, _cost(prob, robust, inlier0), lam, done
+
+
+def ba_step_count(prob: BAProblem, iters: int = 5, cg_iters: int = 24, robust: bool = True,
+                  dense: bool = False):
+    """Run up to `iters` LM iterations from the initial damping; returns
+    (problem, cost)."""
+    prob, cost, _, _ = ba_step_count_lam(prob, 1e-4, iters=iters, cg_iters=cg_iters,
+                                         robust=robust, dense=dense)
+    return prob, cost
+
+
+def classify_outliers(prob: BAProblem) -> BAProblem:
+    """chi2 gate + depth positivity between the two passes of a BA; returns
+    the problem with `obs.valid` updated."""
+    _, _, _, _, _, chi2, behind = _build_system(prob, False, prob.obs.valid.to(torch.float32))
+    good = (chi2 <= _delta2(prob.obs.is_stereo)) & ~behind & prob.obs.valid
+    return prob._replace(obs=prob.obs._replace(valid=good))
+
+
+def bundle_adjust(prob: BAProblem, cg_iters: int = 24):
+    """5 robust iterations -> outlier cull -> 10 plain ones
+    (Optimizer::LocalBundleAdjustment schedule). Problems small enough for an
+    explicit reduced camera matrix take the dense Schur path; the gate is on
+    the reduced system's size and on the coupling tensor's footprint
+    (2 x P*C*72 bytes per iteration), as in the reference. Larger problems
+    fall back to the matrix-free PCG."""
+    C = prob.poses.shape[0]
+    P = prob.points.shape[0]
+    dense = (C * 6 <= 1024) and (P * C * 72 <= 128 * 1024 * 1024)
+    prob, _ = ba_step_count(prob, iters=5, cg_iters=cg_iters, robust=True, dense=dense)
+    prob = classify_outliers(prob)
+    return ba_step_count(prob, iters=10, cg_iters=cg_iters, robust=False, dense=dense)

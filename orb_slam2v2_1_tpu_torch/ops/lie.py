@@ -1,12 +1,16 @@
-"""SE(3) manifold operations, batched over leading dimensions.
+"""SE(3) / Sim(3) manifold operations, batched over leading dimensions.
 
-Port of the JAX package's `ops/lie.py` (SE3 and quaternion parts; the Sim3
-functions belong to loop closing and are not ported yet).
+Port of the JAX package's `ops/lie.py`.
 
 Conventions (as in the reference):
 * Poses are world->camera transforms `Tcw` stored as (..., 4, 4) matrices.
 * SE3 tangent vectors are `[rho(3), phi(3)]` (translation first).
-* Small-angle branches are Taylor-guarded exactly where the JAX code guards.
+* Sim3 elements are 4x4 matrices whose upper-left block is `s*R`; tangent
+  vectors are `[rho(3), phi(3), sigma(1)]`.
+* Small-angle branches are Taylor-guarded exactly where the JAX code guards,
+  and every function is written without in-place writes, so that
+  `torch.func.jacfwd` / `vmap` go through them (the Sim3 solver and the pose
+  graph take forward-mode Jacobians of `sim3_exp` / `sim3_log`).
 
 float32 throughout; matmuls run in full float32 (TF32 is off package-wide,
 see the package docstring).
@@ -74,10 +78,12 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> axis-angle, (..., 3, 3) -> (..., 3); handles theta
     near 0 and near pi."""
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    # (..., 1) throughout: torch.func promotes a 0-dim tangent times a Python
+    # number to float64.
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     w = vee(R - R.transpose(-1, -2)) * 0.5
-    theta = torch.atan2(_safe_norm(w), cos_t)[..., None]
+    theta = torch.atan2(_safe_norm(w)[..., None], cos_t)
     generic = w / torch.clamp(_sinc(theta), min=_EPS)
 
     B = R + _eye(3, R)
@@ -148,11 +154,9 @@ def orthonormalize(T: torch.Tensor) -> torch.Tensor:
 def make_se3(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) from rotation (..., 3, 3) and translation (..., 3)."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R.expand(batch + (3, 3))
-    T[..., :3, 3] = t.expand(batch + (3,))
-    T[..., 3, 3] = 1.0
-    return T
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    bottom = _eye(4, R)[3:4].expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
@@ -165,6 +169,101 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) to points (..., N, 3) -> (..., N, 3)."""
     return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
+
+def make_sim3(R: torch.Tensor, t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Assemble Sim3 as 4x4 with upper-left `s*R` (s broadcastable (...,))."""
+    return make_se3(R * s[..., None, None], t)
+
+
+def sim3_parts(S: torch.Tensor):
+    """Decompose (..., 4, 4) Sim3 -> (R, t, s)."""
+    sR = S[..., :3, :3]
+    s = torch.linalg.norm(sR[..., 0, :], dim=-1)
+    return sR / s[..., None, None], S[..., :3, 3], s
+
+
+def sim3_inverse(S: torch.Tensor) -> torch.Tensor:
+    R, t, s = sim3_parts(S)
+    Rt = R.transpose(-1, -2)
+    s_inv = torch.reciprocal(s)
+    return make_sim3(Rt, -s_inv[..., None] * (Rt @ t[..., None])[..., 0], s_inv)
+
+
+def sim3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """sim(3) tangent [rho(3), phi(3), sigma(1)] -> (..., 4, 4), with the
+    closed-form W matrix of Strasdat's thesis (g2o's `sim3.h`)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    W = _sim3_W(_safe_norm(phi), sigma, hat(phi))
+    t = (W @ rho[..., None])[..., 0]
+    return make_sim3(so3_exp(phi), t, torch.exp(sigma))
+
+
+def sim3_log(S: torch.Tensor) -> torch.Tensor:
+    R, t, s = sim3_parts(S)
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    W = _sim3_W(_safe_norm(phi), sigma, hat(phi))
+    rho = _solve3(W, t)
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def _solve3(W: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """x with W x = t for (..., 3, 3) W by Cramer's rule. The reference calls
+    an LU solve; `torch.linalg.solve` gives wrong forward derivatives under
+    `vmap(jacfwd(...))` when W and t are batched at different levels, and W
+    is within a rotation-sized step of a multiple of the identity here."""
+    a, b, c = W[..., :, 0], W[..., :, 1], W[..., :, 2]
+    bc = torch.linalg.cross(b, c)
+    ca = torch.linalg.cross(c, a)
+    ab = torch.linalg.cross(a, b)
+    det = torch.sum(a * bc, dim=-1, keepdim=True)
+    return torch.stack([torch.sum(t * bc, -1), torch.sum(t * ca, -1), torch.sum(t * ab, -1)], -1) / det
+
+
+def _sim3_W(theta: torch.Tensor, sigma: torch.Tensor, Phi: torch.Tensor) -> torch.Tensor:
+    """The W matrix in Sim3 exp, t = W rho: W = A*Phi + B*Phi^2 + C*I with
+    scale/angle-dependent coefficients, Taylor-guarded for small sigma and/or
+    theta; the unused branch of every `where` is evaluated at a safe
+    argument so that its derivative stays finite."""
+    theta, sigma = theta[..., None, None], sigma[..., None, None]
+    Phi2 = Phi @ Phi
+    s = torch.exp(sigma)
+    one = torch.ones_like(sigma)
+
+    small_sig = torch.abs(sigma) < 1e-5
+    small_th = theta < 1e-5
+    safe_sig = torch.where(small_sig, one, sigma)
+    safe_th = torch.where(small_th, one, theta)
+
+    C = torch.where(small_sig, 1.0 + sigma / 2.0, (s - 1.0) / safe_sig)
+
+    sig2 = safe_sig * safe_sig
+    th2 = safe_th * safe_th
+    denom = sig2 + th2
+    sin_th, cos_th = torch.sin(safe_th), torch.cos(safe_th)
+
+    a_sig = s * sin_th
+    b_sig = s * cos_th
+    A_gen = (a_sig * safe_sig + (1.0 - b_sig) * safe_th) / (safe_th * denom)
+    B_gen = (C - ((b_sig - 1.0) * safe_sig + a_sig * safe_th) / denom) / th2
+
+    A_sig0 = _cosc(safe_th)
+    B_sig0 = (safe_th - sin_th) / (safe_th**3)
+
+    A_th0 = torch.where(small_sig, 0.5 + sigma / 3.0, ((safe_sig - 1.0) * s + 1.0) / sig2)
+    B_th0 = torch.where(
+        small_sig, 1.0 / 6.0 + sigma / 8.0,
+        (s * (0.5 * sig2 - safe_sig + 1.0) - 1.0) / (sig2 * safe_sig),
+    )
+
+    A = torch.where(small_th, A_th0, torch.where(small_sig, A_sig0, A_gen))
+    B = torch.where(small_th, B_th0, torch.where(small_sig, B_sig0, B_gen))
+    return C * _eye(3, Phi) + A * Phi + B * Phi2
 
 
 # ---------------------------------------------------------------------------

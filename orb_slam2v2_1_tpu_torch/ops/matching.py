@@ -130,12 +130,13 @@ def masked_best_two_plain(q_words, q_xy, q_level, q_valid, radius,
 def _search_batch(q_words, q_xy, q_level, q_valid, radius, t_words, t_xy, t_level, t_valid):
     """The kernels' (B, Q, ..) / (B, N, ..) views of a search's inputs and
     the leading shape. Inputs of the right type and layout are only viewed;
-    a scalar or broadcast radius is materialized."""
+    a scalar or broadcast radius, and any input expanded over the batch (the
+    same queries for every target set), is materialized."""
     lead = q_words.shape[:-2]
     Q, N = q_words.shape[-2], t_words.shape[-2]
     if not (torch.is_tensor(radius) and radius.shape == lead + (Q,) and radius.dtype == torch.float32):
         radius = torch.as_tensor(radius, dtype=torch.float32, device=q_words.device).expand(lead + (Q,))
-    shaped = [x.reshape((-1,) + tail) for x, tail in (
+    shaped = [x.reshape((-1,) + tail).contiguous() for x, tail in (
         (q_words, (Q, 8)), (q_xy, (Q, 2)), (q_level, (Q,)), (q_valid, (Q,)), (radius, (Q,)),
         (t_words, (N, 8)), (t_xy, (N, 2)), (t_level, (N,)), (t_valid, (N,)))]
     return shaped, lead + (Q,)

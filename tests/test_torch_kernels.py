@@ -234,6 +234,24 @@ class TestOnCard:
         ref = matching.match_projection_plain(*qf, *tf, r, max_dist=120, nn_ratio=0.95)
         _assert_match_equal(got, ref)
 
+    @pytest.mark.parametrize("b,q,n,max_dist", [(1, 1000, 1000, 100), (16, 4096, 1000, 50)], ids=["sim3", "loop_fuse"])
+    def test_match_projection_loop_shapes(self, cuda_device, rng, b, q, n, max_dist):
+        """Loop closing's searches at ratio 1.0: one Sim3 candidate's projection
+        search, and the loop fusion with the same queries expanded over the
+        16 target keyframes (an expanded view, as `search_and_fuse` passes
+        it). Both forms exact."""
+        qf, tf = _features(rng, 1, q, cuda_device), _features(rng, b, n, cuda_device)
+        qf = [x.expand((b,) + x.shape[1:]) for x in qf]
+        r = torch.from_numpy(rng.uniform(5, 60, (b, q)).astype(np.float32)).to(cuda_device)
+        kernels.reset_launch_counts()
+        got = matching.match_projection(*qf, *tf, r, max_dist=max_dist, nn_ratio=1.0)
+        best = matching.masked_best_two(*qf, r, *tf)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["masked_best_two"] == 2
+        _assert_match_equal(got, matching.match_projection_plain(*qf, *tf, r, max_dist=max_dist, nn_ratio=1.0))
+        for g, e in zip(best, matching.masked_best_two_plain(*qf, r, *tf)):
+            assert torch.equal(g, e)
+
     def test_wrapper_checks(self, cuda_device, rng):
         with pytest.raises(ValueError, match="dtype"):
             kernels.fast_score_nms(torch.zeros(8, 8, dtype=torch.float64, device=cuda_device))

@@ -26,9 +26,11 @@ from orb_slam2v2_1_tpu.ops import ba as jba
 from orb_slam2v2_1_tpu.ops import hamming as jham
 from orb_slam2v2_1_tpu.ops import lie as jlie
 from orb_slam2v2_1_tpu.ops import orb as jorb
+from orb_slam2v2_1_tpu.ops import vocab as jvocab
 
 from orb_slam2v2_1_tpu_torch.models import frontend, initialization, local_mapping, map_state, tracking
 from orb_slam2v2_1_tpu_torch.ops import ba
+from orb_slam2v2_1_tpu_torch.ops import vocab
 from orb_slam2v2_1_tpu_torch.utils import synthetic
 from orb_slam2v2_1_tpu_torch.utils.config import SlamConfig
 
@@ -319,3 +321,47 @@ def test_bundle_adjust_window_parity(rng):
     np.testing.assert_allclose(rt.points.numpy(), np.asarray(rj.points), rtol=1e-3, atol=1e-5)
     np.testing.assert_array_equal(rt.valid.numpy(), np.asarray(rj.valid))
     np.testing.assert_allclose(float(ct), float(cj), rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the vocabulary-pruned searches (turned on by a loop closer's vocabulary)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def vocs():
+    npz = np.load(jvocab.__file__.replace("ops/vocab.py", "data/vocab.npz"))
+    return jvocab.load_vocabulary(npz), vocab.load_vocabulary(npz, device="cpu")
+
+
+@pytest.mark.parametrize("use_voc", [False, True])
+def test_track_reference_keyframe_parity(scene, vocs, use_voc):
+    """Frame 20 against keyframe 1 of the JAX-built map, with and without the
+    vocabulary's node mask: identical associations and counts, pose within
+    1e-4; the mask prunes matches."""
+    jvoc, tvoc = vocs if use_voc else (None, None)
+    st, frame = scene["state"], scene["frame"]
+    T_init = st["kf_pose"][1]
+    rT, rmp, rstats = jtr.track_reference_keyframe(J(st), _jframe(frame), jnp.int32(1), jnp.asarray(T_init),
+                                                   jnp.asarray(K_NP), jnp.float32(BF), jvoc)
+    gT, gmp, gstats = tracking.track_reference_keyframe(T(st), tracking.frame_from_numpy(frame, device="cpu"), 1,
+                                                        torch.from_numpy(T_init), KT, BF, tvoc)
+    np.testing.assert_array_equal(gmp.numpy(), np.asarray(rmp))
+    assert int(gstats.n_matches) == int(rstats.n_matches) and int(gstats.n_inliers) == int(rstats.n_inliers) >= 30
+    np.testing.assert_allclose(gT.numpy(), np.asarray(rT), atol=1e-4)
+    if use_voc:
+        plain = tracking.track_reference_keyframe(T(st), tracking.frame_from_numpy(frame, device="cpu"), 1,
+                                                  torch.from_numpy(T_init), KT, BF)
+        assert int(gstats.n_matches) < int(plain[2].n_matches)
+
+
+def test_create_map_points_with_vocabulary(stages, vocs):
+    """`create_map_points` with the vocabulary's node mask on the candidate
+    pairs gives the reference's map. (The orbit turns in place, so these two
+    keyframes have no baseline and triangulate nothing, with or without the
+    mask; `test_torch_loop.py::test_triangulate_candidates_with_vocabulary`
+    holds the masked search on keyframes that do.)"""
+    jvoc, tvoc = vocs
+    s, kf = stages
+    ref = NP(jlm.create_map_points(J(s["cull_mp"]), kf, jnp.asarray(K_NP), jnp.float32(BF), jax.random.key(0), jvoc))
+    got = local_mapping.create_map_points(T(s["cull_mp"]), kf, KT, BF, tvoc)
+    assert_state_close(ref, got)

@@ -21,13 +21,19 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from orb_slam2v2_1_tpu.models import keyframe_database as jkdb
+from orb_slam2v2_1_tpu.models import loop_closing as jlc
 from orb_slam2v2_1_tpu.models import offline as joff
+from orb_slam2v2_1_tpu.ops import vocab as jvocab
 from orb_slam2v2_1_tpu.utils import config as jconfig
 from orb_slam2v2_1_tpu.utils import synthetic as jsyn
 from orb_slam2v2_1_tpu.ops import lie as jlie
 
 from orb_slam2v2_1_tpu_torch import sync
-from orb_slam2v2_1_tpu_torch.models import offline
+from orb_slam2v2_1_tpu_torch.models import keyframe_database as kdb
+from orb_slam2v2_1_tpu_torch.models import loop_closing as lc
+from orb_slam2v2_1_tpu_torch.models import map_state, offline
+from orb_slam2v2_1_tpu_torch.ops import vocab
 from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
 torch.set_num_threads(2)
@@ -35,6 +41,7 @@ torch.set_num_threads(2)
 KW = dict(fx=275.0, fy=275.0, cx=160.0, cy=120.0, width=320, height=240, n_features=500,
           max_keyframes=16, max_map_points=4096, fps=10.0, bf=44.0, th_depth=100.0)
 N_FRAMES = 16
+VOCAB_NPZ = jvocab.__file__.replace("ops/vocab.py", "data/vocab.npz")
 
 
 @pytest.fixture(scope="module")
@@ -88,11 +95,59 @@ def test_chunked_equals_whole(frames, runs):
     np.testing.assert_array_equal(p2, poses[:12])
 
 
-def test_loop_closer_not_ported(frames):
+@pytest.fixture(scope="module")
+def loop_runs(frames):
+    """The 16 frames through both packages with a loop closer (the shared
+    vocabulary, a 16 x 500 x 10000 database, detached global BA) in chunks of
+    5 frames."""
     imgs, deps, _ = frames
-    with pytest.raises(NotImplementedError):
-        offline.track_sequence_rgbd(imgs[:2], deps[:2], config.SlamConfig(**KW), loop_closer=object(),
-                                    device="cpu")
+    npz = np.load(VOCAB_NPZ)
+    jcl = jlc.LoopCloser(jvocab.load_vocabulary(npz), jkdb.empty_database(16, 500, 10000), True,
+                         jnp.asarray(jconfig.SlamConfig(**KW).K), jnp.float32(KW["bf"]))
+    tcl = lc.LoopCloser(vocab.load_vocabulary(npz, device="cpu"), kdb.empty_database(16, 500, 10000, device="cpu"),
+                        True, torch.tensor(config.SlamConfig(**KW).K), KW["bf"])
+    jcl.enable_detached_gba()
+    tcl.enable_detached_gba()
+    ref = joff.track_sequence_rgbd(imgs, deps, jconfig.SlamConfig(**KW), loop_closer=jcl, chunk=5)
+    got = offline.track_sequence_rgbd(imgs, deps, config.SlamConfig(**KW), loop_closer=tcl, chunk=5, device="cpu")
+    return ref, got, jcl, tcl
+
+
+def test_loop_closer_not_ported(loop_runs, runs):
+    """The slice with a loop closer (the name dates from when the port raised
+    here): identical `ok`, poses within 2 mm / 0.05 deg of the reference's
+    run with its loop closer, equal keyframe and insertion counts, no closure
+    on 16 frames and no global BA left running. The closer's vocabulary
+    prunes the reference-keyframe and triangulation searches, so the map
+    differs from the run without one."""
+    (jposes, jok, jstate), (poses, ok, state), jcl, tcl = loop_runs
+    np.testing.assert_array_equal(ok, jok)
+    assert bool(np.all(ok))
+    dc = np.linalg.norm(_centers(poses) - _centers(jposes), axis=1)
+    assert dc.max() <= 2e-3, dc
+    R = np.einsum("fji,fjk->fik", poses[:, :3, :3], jposes[:, :3, :3])
+    ang = np.degrees(np.arccos(np.clip((np.trace(R, axis1=1, axis2=2) - 1) / 2, -1, 1)))
+    assert ang.max() <= 0.05, ang
+    assert tcl.kf_counter == jcl.kf_counter == int(state.kf_valid.sum()) >= 2
+    assert int(state.kf_valid.sum()) == int(np.asarray(jstate.kf_valid).sum())
+    assert tcl.n_loops_closed == jcl.n_loops_closed == 0 and tcl.n_gba_merged == 0
+    assert not tcl.gba_runner.running
+    _, (_, _, plain_state), _ = runs
+    assert int(state.mp_valid.sum()) != int(plain_state.mp_valid.sum())
+
+
+def test_loop_closer_database_parity(loop_runs):
+    """The BoW database after the run: `valid` equal, the word rows of the
+    registered keyframes exact (their descriptors are bit-equal in the two
+    packages on these frames), vectors within 1e-6."""
+    (_, _, jstate), (_, _, state), jcl, tcl = loop_runs
+    got = kdb.database_to_numpy(tcl.db)
+    valid = np.asarray(jcl.db.valid)
+    np.testing.assert_array_equal(got["valid"], valid)
+    assert valid.sum() >= 2
+    np.testing.assert_array_equal(map_state.to_numpy(state)["kf_desc"][valid], np.asarray(jstate.kf_desc)[valid])
+    np.testing.assert_array_equal(got["words"][valid], np.asarray(jcl.db.words)[valid])
+    np.testing.assert_allclose(got["vectors"][valid], np.asarray(jcl.db.vectors)[valid], atol=1e-6)
 
 
 def test_load_settings_parity(tmp_path):

@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""ATE of the JAX reference package on the benchmark's RGB-D orbit, on the CPU.
+
+    python3 tests/torch_reference_orbit.py [--frames 321] [--no-loop] [--out FILE]
+    python3 tests/torch_reference_orbit.py --compare-small
+    python3 tests/torch_reference_orbit.py --sensitivity
+
+The number that `chip_smoke.py` holds the PyTorch port's loop path to: the
+same orbit (the room, seed and poses of `bench.orbit_frames`), the same
+configuration and the same loop closer (`bench.make_loop_closer`: shared
+vocabulary, detached global BA, `chunk=32`) through `orb_slam2v2_1_tpu.models.offline.track_sequence_rgbd`,
+with JAX on the CPU (its Pallas kernels run through their references there).
+The ATE is the rigid-aligned RMS of the camera centers of the tracked frames
+against the orbit's ground truth, as `chip_smoke.py` computes it. Not a test:
+pytest does not collect this file. It takes minutes at 321 frames.
+
+`--compare-small` puts the 321 frames at 320x240 (500 features, 64 keyframes,
+8192 map points) through both packages on the CPU, each with its loop closer
+and its own RANSAC draws, and prints each package's closures and how far the
+two trajectories drift apart. `--sensitivity` gives that drift its scale: the
+reference alone, on the first 200 of those frames without a loop closer,
+against itself on the same frames with uniform noise of +-0.001 gray levels
+(of 255) added.
+"""
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import bench  # noqa: E402
+from orb_slam2v2_1_tpu.models import offline  # noqa: E402
+from orb_slam2v2_1_tpu.ops import lie  # noqa: E402
+from orb_slam2v2_1_tpu.utils.config import SlamConfig  # noqa: E402
+
+BENCH = dict(fx=550.0, fy=550.0, cx=320.0, cy=240.0, width=640, height=480, n_features=1000,
+             max_keyframes=128, max_map_points=16384, fps=10.0, bf=44.0, th_depth=100.0)
+TOTAL = 321  # the orbit's pose k depends on the total: two turns over 321 frames
+
+
+def orbit_poses(n_frames):
+    """World->camera poses of the first `n_frames` of `bench.orbit_frames`."""
+    poses = []
+    for k in range(n_frames):
+        Twc = np.eye(4, dtype=np.float32)
+        Twc[:3, :3] = np.asarray(lie.so3_exp(jnp.asarray([0.0, 2.0 * 2 * np.pi * k / TOTAL, 0.0], jnp.float32)))
+        Twc[:3, 3] = [0.0, 0.0, 3.0]
+        poses.append(np.linalg.inv(Twc).astype(np.float32))
+    return np.stack(poses)
+
+
+def render_orbit(cfg, poses):
+    """The frames of `bench.orbit_frames` at the given poses (its room, its
+    seed, its renderer)."""
+    from orb_slam2v2_1_tpu.utils import synthetic
+
+    room = synthetic.make_room(np.random.default_rng(11))
+    scene = synthetic.PlaneScene(room.origin[:6], room.ux[:6], room.vy[:6], room.tex[:6])
+    K = jnp.asarray(cfg.K)
+    frames = [synthetic.render(scene, jnp.asarray(Tcw), K, cfg.width, cfg.height) for Tcw in poses]
+    return np.stack([np.asarray(i) for i, _ in frames]), np.stack([np.asarray(d) for _, d in frames])
+
+
+def centers(poses):
+    return np.stack([-p[:3, :3].T @ p[:3, 3] for p in poses])
+
+
+def ate_rigid(est, gt):
+    """RMS position error after a rigid Horn alignment (no scale)."""
+    P, Q = est.T.astype(np.float64), gt.T.astype(np.float64)
+    mu_p, mu_q = P.mean(1, keepdims=True), Q.mean(1, keepdims=True)
+    U, _, Vt = np.linalg.svd((Q - mu_q) @ (P - mu_p).T)
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    err = R @ P + (mu_q - R @ mu_p) - Q
+    return float(np.sqrt((err * err).sum(0).mean()))
+
+
+SMALL = dict(BENCH, fx=275.0, fy=275.0, cx=160.0, cy=120.0, width=320, height=240, n_features=500,
+             max_keyframes=64, max_map_points=8192)
+
+
+def sensitivity(n_frames=200, amplitude=1e-3):
+    cfg = SlamConfig(**SMALL)
+    imgs, deps = render_orbit(cfg, orbit_poses(n_frames))
+    noisy = (imgs + np.random.default_rng(0).uniform(-amplitude, amplitude, imgs.shape)).astype(np.float32)
+    poses, _, state = offline.track_sequence_rgbd(imgs, deps, cfg)
+    poses_n, _, state_n = offline.track_sequence_rgbd(noisy, deps, cfg)
+    apart = np.linalg.norm(centers(np.asarray(poses)) - centers(np.asarray(poses_n)), axis=1)
+    print(json.dumps({
+        "package": "orb_slam2v2_1_tpu (JAX, CPU)", "frames": n_frames, "gray_noise": amplitude,
+        "keyframes": [int(np.asarray(state.kf_valid).sum()), int(np.asarray(state_n.kf_valid).sum())],
+        "centers_apart_m_every_16_frames": [round(float(x), 4) for x in apart[::16]],
+    }), flush=True)
+
+
+def compare_small():
+    import torch
+    from orb_slam2v2_1_tpu.models import keyframe_database as jkdb
+    from orb_slam2v2_1_tpu.models import loop_closing as jlc
+    from orb_slam2v2_1_tpu.ops import vocab as jvocab
+    from orb_slam2v2_1_tpu_torch.models import keyframe_database as kdb
+    from orb_slam2v2_1_tpu_torch.models import loop_closing as lc
+    from orb_slam2v2_1_tpu_torch.models import offline as toffline
+    from orb_slam2v2_1_tpu_torch.ops import vocab
+    from orb_slam2v2_1_tpu_torch.utils import config as tconfig
+
+    kw = SMALL
+    cfg = SlamConfig(**kw)
+    imgs, deps = render_orbit(cfg, orbit_poses(TOTAL))
+    npz = np.load(jvocab.__file__.replace("ops/vocab.py", "data/vocab.npz"))
+    tcl = lc.LoopCloser(vocab.load_vocabulary(npz, device="cpu"), kdb.empty_database(64, 500, 10000, device="cpu"),
+                        True, torch.tensor(cfg.K), cfg.bf)
+    jcl = jlc.LoopCloser(jvocab.load_vocabulary(npz), jkdb.empty_database(64, 500, 10000), True,
+                         jnp.asarray(cfg.K), jnp.float32(cfg.bf))
+    jclosures = []
+    apply_closure = jcl.apply_closure
+
+    def logged_closure(state, kf_id, cand, S12):
+        state = apply_closure(state, kf_id, cand, S12)
+        jclosures.append((jcl.kf_counter, int(kf_id), int(cand)))
+        return state
+
+    jcl.apply_closure = logged_closure
+    for closer in (tcl, jcl):
+        closer.enable_detached_gba()
+    tposes, tok, tstate = toffline.track_sequence_rgbd(imgs, deps, tconfig.SlamConfig(**kw), loop_closer=tcl, chunk=32,
+                                                       device="cpu")
+    jposes, jok, jstate = offline.track_sequence_rgbd(imgs, deps, cfg, loop_closer=jcl, chunk=32)
+    apart = np.linalg.norm(centers(tposes) - centers(np.asarray(jposes)), axis=1)
+    print(json.dumps({
+        "port": {"tracked": int(tok.sum()), "keyframes": int(tstate.kf_valid.sum()), "closures": tcl.closures,
+                 "detect_suppressed": tcl.n_detect_suppressed},
+        "reference": {"tracked": int(np.asarray(jok).sum()), "keyframes": int(np.asarray(jstate.kf_valid).sum()),
+                      "closures": jclosures, "detect_suppressed": jcl.n_detect_suppressed},
+        "centers_apart_m_every_32_frames": [round(float(x), 4) for x in apart[::32]],
+    }), flush=True)
+
+
+def main():
+    args = sys.argv[1:]
+    if args == ["--compare-small"]:
+        return compare_small()
+    if args == ["--sensitivity"]:
+        return sensitivity()
+    n_frames, with_loop, out = 321, True, None
+    while args:
+        if args[0] == "--frames":
+            n_frames, args = int(args[1]), args[2:]
+        elif args[0] == "--out":
+            out, args = args[1], args[2:]
+        elif args[0] == "--no-loop":
+            with_loop, args = False, args[1:]
+        else:
+            raise SystemExit(__doc__)
+    cfg = SlamConfig(**BENCH)
+    t0 = time.time()
+    gt = orbit_poses(n_frames)
+    imgs, deps = render_orbit(cfg, gt)
+    print(f"rendered {n_frames} frames in {time.time() - t0:.1f} s", flush=True)
+    closer = bench.make_loop_closer(cfg, jnp.asarray(cfg.K), jnp.float32(cfg.bf)) if with_loop else None
+    closures = []  # (insertion count, keyframe, loop keyframe) of each closure
+    if closer is not None:
+        apply_closure = closer.apply_closure
+
+        def logged_closure(state, kf_id, cand, S12):
+            state = apply_closure(state, kf_id, cand, S12)
+            closures.append((closer.kf_counter, int(kf_id), int(cand)))
+            return state
+
+        closer.apply_closure = logged_closure
+    t0 = time.time()
+    poses, ok, state = offline.track_sequence_rgbd(imgs, deps, cfg, loop_closer=closer,
+                                                   chunk=32 if with_loop else None)
+    wall = time.time() - t0
+    poses, ok = np.asarray(poses), np.asarray(ok).astype(bool)
+    gt = np.stack([g @ np.linalg.inv(gt[0]) for g in gt])  # world = first camera
+    record = {
+        "package": "orb_slam2v2_1_tpu (JAX, CPU)", "frames": n_frames, "loop_closer": with_loop,
+        "tracked": int(ok.sum()), "keyframes": int(np.asarray(state.kf_valid).sum()),
+        "map_points": int(np.asarray(state.mp_valid).sum()),
+        "ate_m": ate_rigid(centers(poses)[ok], centers(gt)[ok]), "wall_s": wall,
+    }
+    if closer is not None:
+        r = closer.gba_runner
+        record.update(loops_closed=closer.n_loops_closed, closures=closures, detect_suppressed=closer.n_detect_suppressed,
+                      gba_runs=r.n_runs, gba_merged=closer.n_gba_merged, gba_aborted=r.n_aborted)
+    print(json.dumps(record), flush=True)
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(record, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
