@@ -13,13 +13,14 @@ Phases, each of which raises (exit code != 0) on failure:
   3. both forms of each kernel against their plain PyTorch versions at the
      main path's shapes, on the card, exact: the score map per level, the
      per-cell best corner for the whole pyramid (rendered frame and uniform
-     noise), (idx, best, second) and the finished one-to-one match at the
-     five search shapes (motion model, local map, batched fuse, and loop
-     closing's Sim3 search and loop fusion). Per form: the device time
-     without the host (100 calls in one CUDA graph between two events), the
-     wrapper-included time and the plain version's (events around one call,
-     median of 20), the bound reckoned from this run's inputs, and the empty
-     kernel's launch;
+     noise, at 640x480 and at the KITTI geometry's 1241x376), (idx, best,
+     second) and the finished one-to-one match at the eight search shapes
+     (motion model, local map, batched fuse, loop closing's Sim3 search and
+     loop fusion, and the KITTI geometry's motion model, local map and fuse with
+     2000 keypoints). Per form: the device time without the host (100 calls
+     in one CUDA graph between two events), the wrapper-included time and the
+     plain version's (events around one call, median of 20), the bound
+     reckoned from this run's inputs, and the empty kernel's launch;
   4. the main path: frames 0-95 of the benchmark's 321-frame RGB-D orbit,
      rendered on the card, through `models.offline.track_sequence_rgbd` at the
      benchmark configuration (640x480, 1000 features, 8 levels, 128 keyframes,
@@ -32,7 +33,25 @@ Phases, each of which raises (exit code != 0) on failure:
      vocabulary, a 128 x 1000 x 10000 database, fixed scale, detached global
      BA) in chunks of 32 frames: at least 90% of frames tracked, at least one
      loop closed, finite poses, ATE within its bound, kernel 2 launched more
-     often than frames were tracked, no global-BA thread left running.
+     often than frames were tracked, no global-BA thread left running;
+  6. the online RGB-D path: `models.system.SlamSystem(sensor=RGBD)` in sync
+     mode at the benchmark configuration, frame by frame through `track_rgbd`:
+     orbit frames 0-69, three black frames, frames 66-95, then frames 30-32
+     (146 deg from the last view: only relocalization recovers them). Lost on
+     every black frame, tracking again on the first or second replayed frame
+     without a reset, relocalized within frames 30-32, >= 90% of the other
+     frames tracked, ATE within its bound; the batched float64 eigen solve of
+     the PnP RANSAC on the card gives the CPU's inlier set;
+  7. the stereo dolly: `evaluate.py`'s stereo_dolly through
+     `SlamSystem(sensor=STEREO).track_stereo` (75 rectified pairs of
+     `make_room(default_rng(3))`, 5 cm sideways and 4 cm forward a frame,
+     th_depth=100): 75/75 tracked, ATE <= 0.035 x 1.05 m (evaluate.py's
+     gate), fast_score_nms launched twice per frame; the first pair's stereo
+     frame equals the CPU's;
+  8. the KITTI geometry: bench.py's KITTI leg (1241x376, 2000 features, 64
+     keyframes, 60 pairs, 8 cm sideways and 5 cm forward a frame) in sync
+     mode: at least the reference's 51 frames tracked (the camera leaves the
+     room at frame 50), ATE within its bound.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -58,6 +77,29 @@ LOOP_FRAMES, LOOP_CHUNK = 321, 32
 # in place, so this ATE is the scatter of the estimated centers about a point.
 LOOP_ATE_BOUND = 2 * 0.3542
 VOCAB_NPZ = os.path.join(ROOT, "orb_slam2v2_1_tpu", "data", "vocab.npz")  # a data file, read in place
+# Phase 6: orbit frame indices fed to SlamSystem.track_rgbd, None = a black
+# frame (zero image and depth).
+ONLINE_SEQUENCE = list(range(70)) + [None] * 3 + list(range(66, 96)) + [30, 31, 32]
+BLACKOUT, REPLAY, FAR = slice(70, 73), 73, slice(103, 106)
+# ATE bound of the online path (metres, `utils.trajectory.ate_rmse` without
+# scale over the tracked frames): twice the JAX reference's on the same
+# sequence, 0.1220 m, measured with `tests/torch_reference_orbit.py --online`
+# (JAX on the CPU of an H100 machine: 103/106 poses, 7 keyframes before the
+# blackout, 1 relocalization, 0 resets).
+ONLINE_ATE_BOUND = 2 * 0.1220
+# Phase 7: evaluate.py's stereo_dolly (its gate: BASELINE.md's EuRoC MH_01
+# stereo ATE x 1.05).
+DOLLY_FRAMES, DOLLY_STEP = 75, (0.05, 0.04)
+DOLLY_ATE_BOUND = 0.035 * 1.05
+# Phase 8: bench.py's KITTI leg. The dolly takes the camera through the
+# room's right wall (x = 4 m) at frame 50, so the reference tracks 51 of the
+# 60 frames; the port is held to that count and to twice the reference's
+# ATE, 0.01137 m (`tests/torch_reference_orbit.py --stereo`, JAX on the CPU
+# of an H100 machine: 51/60, 12 keyframes). The stereo dolly's reference:
+# 75/75, 8 keyframes, ATE 0.01068 m.
+KITTI_FRAMES, KITTI_STEP = 60, (0.08, 0.05)
+KITTI_MIN_TRACKED = 51
+KITTI_ATE_BOUND = 2 * 0.01137
 
 
 def log(*a):
@@ -118,9 +160,10 @@ def timed(kt, name, shape, kernel_fn, plain_fn, n_bytes, n_ops, floor_ms, caller
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_fast(kt, img, noise, cfg, ocfg, floor_ms):
+def check_fast(kt, img, noise, cfg, ocfg, floor_ms, label=""):
     """Kernel 1, both forms, exact: the score map per level, and cell_best /
-    cell_arg for the whole pyramid on the rendered frame and on noise."""
+    cell_arg for the whole pyramid on the rendered frame and on noise;
+    `label` names a geometry other than the benchmark's."""
     import torch
     from orb_slam2v2_1_tpu_torch import kernels
     from orb_slam2v2_1_tpu_torch.ops import fast, image
@@ -140,7 +183,7 @@ def check_fast(kt, img, noise, cfg, ocfg, floor_ms):
         torch.cuda.synchronize()
         if not torch.equal(got, ref):
             raise AssertionError(f"fast_score_nms differs from nms3(fast_score) at {tuple(lvl.shape)}")
-        shapes.append(timed(kt, "fast_score_nms map", list(lvl.shape), lambda: kernels.fast_score_nms(lvl),
+        shapes.append(timed(kt, "fast_score_nms map" + label, list(lvl.shape), lambda: kernels.fast_score_nms(lvl),
                             lambda: fast.nms3(fast.fast_score(lvl)), 8 * lvl.numel(),
                             FAST_OPS_PER_PIXEL * lvl.numel(), floor_ms))
     for name, lv in (("rendered", levels), ("noise", pyramid(noise))):
@@ -153,11 +196,11 @@ def check_fast(kt, img, noise, cfg, ocfg, floor_ms):
             if not (torch.equal(gb, rb) and torch.equal(ga, ra) and not got.best[l, gb.numel():].any()):
                 raise AssertionError(f"fast_score_nms cell form differs from rank_cells at {tuple(lvl.shape)} ({name})")
             n_cells, n_strong, n_empty = n_cells + rb.numel(), n_strong + int((rb >= 1e4).sum()), n_empty + int((rb == 0).sum())
-        log(f"fast_score_nms cells, {name} frame: equal over {len(lv)} levels, {n_cells} cells, "
+        log(f"fast_score_nms cells{label}, {name} frame: equal over {len(lv)} levels, {n_cells} cells, "
             f"{n_strong} with a strong corner, {n_empty} empty")
     pixels = sum(lvl.numel() for lvl in levels)
     cells = sum(ch * cw for ch, cw in got.grids)
-    main = timed(kt, "fast_score_nms cells", [list(lvl.shape) for lvl in levels],
+    main = timed(kt, "fast_score_nms cells" + label, [list(lvl.shape) for lvl in levels],
                  lambda: fast.suppressed_cells_pyramid(levels, **rank), lambda: plain_cells(levels),
                  4 * pixels + 12 * cells, FAST_OPS_PER_PIXEL * pixels, floor_ms)
     return {"max_abs_err": 0.0, **{k: main[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
@@ -165,14 +208,13 @@ def check_fast(kt, img, noise, cfg, ocfg, floor_ms):
 
 
 def check_match(kt, dev, rng, floor_ms):
-    """Kernel 2, both forms, exact, at the five shapes of the two paths."""
+    """Kernel 2, both forms, exact, at the eight search shapes of the paths."""
     import torch
     from orb_slam2v2_1_tpu_torch.ops import matching
 
     shapes = []
-    for name, (b, q, n) in kt.SEARCH_SHAPES:
-        qf, r, tf = kt.search_inputs(rng, dev, b, q, n)
-        max_dist, ratio = kt.SEARCH_PARAMS[name]
+    for name, (b, q, n), frame, (max_dist, ratio) in kt.SEARCH_SHAPES:
+        qf, r, tf = kt.search_inputs(rng, dev, b, q, n, *frame)
         idx, best, second = matching.masked_best_two(*qf, r, *tf)
         ridx, rbest, rsecond = matching.masked_best_two_plain(*qf, r, *tf)
         got = matching.match_projection(*qf, *tf, r, max_dist=max_dist, nn_ratio=ratio)
@@ -287,6 +329,168 @@ def run_loop_path(imgs, deps, gt, cfg, dev, card):
     return rec, launches, poses, ok
 
 
+def ate_of(slam, gt_Tcw):
+    """The repository's ATE (`utils.trajectory.ate_rmse`, rigid, no scale)
+    of a SlamSystem's trajectory, resolved with its final keyframe poses,
+    against ground-truth Tcw keyed by timestamp."""
+    import numpy as np
+    from orb_slam2v2_1_tpu_torch.utils.trajectory import ate_rmse
+
+    est = slam.trajectory.absolute_poses(slam.map.kf_pose.cpu().numpy())
+    return ate_rmse(est, {t: np.linalg.inv(T) for t, T in gt_Tcw.items()}, align_scale=False)
+
+
+def online_record(slam, outs, wall, launches, syncs, ate, card, **extra):
+    st = slam.stats()
+    n = len(outs)
+    return {"frames": n, "tracked": sum(o is not None for o in outs), "keyframes": slam.n_kf_host,
+            "map_points": int(slam.map.mp_valid.sum()), "loops_closed": slam.n_loops_closed,
+            "relocalized": slam.n_relocalized, "resets": slam.n_resets, "ate_m": ate, "wall_s": wall,
+            "fps": n / wall, "track_ms_p50": st["track_ms_p50"], "track_ms_p90": st["track_ms_p90"],
+            "map_ms_p50": st["map_ms_p50"], "host_syncs": syncs, "host_syncs_per_frame": syncs / n,
+            "launches": launches, "stats": st, "card": card, **extra}
+
+
+def drive(slam, frames, track):
+    """Feed (a, b) pairs through `track` with counts reset just before;
+    returns (poses or None, states, wall s, launches, host reads)."""
+    import torch
+    from orb_slam2v2_1_tpu_torch import kernels, sync
+
+    kernels.reset_launch_counts()
+    sync.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, states = [], []
+    for j, (a, b) in enumerate(frames):
+        outs.append(track(a, b, j * 0.1))
+        states.append(slam.state)
+    torch.cuda.synchronize()
+    return outs, states, time.perf_counter() - t0, dict(kernels.LAUNCHES), sync.COUNT["syncs"]
+
+
+def check_pnp_on_card(dev):
+    """The PnP RANSAC's batched float64 eigen solve on the card against the
+    CPU on exact correspondences with 20% outliers, the same hypothesis sets:
+    the same inlier set and count, poses within 1e-4."""
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch.ops import pnp
+
+    rng = np.random.default_rng(4)
+    n = 1000
+    pc = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(2, 6, n)], -1)
+    uv = np.stack([550 * pc[:, 0] / pc[:, 2] + 320, 550 * pc[:, 1] / pc[:, 2] + 240], -1)
+    uv[::5] = rng.uniform([0, 0], [640, 480], (n // 5, 2))
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (pc, uv, np.ones(n))] + [torch.ones(n, dtype=torch.bool)]
+    K = torch.tensor([550.0, 550.0, 320.0, 240.0])
+    sets = pnp.sample_sets(args[3], torch.Generator().manual_seed(1))
+    ref = pnp.pnp_ransac(*args, K, sets=sets)
+    got = pnp.pnp_ransac(*(a.to(dev) for a in args), K.to(dev), sets=sets.to(dev))
+    same = torch.equal(got.inliers.cpu(), ref.inliers)
+    dT = float((got.Tcw.cpu() - ref.Tcw).abs().max())
+    log(f"PnP RANSAC (256 x 12x12 float64 eigh, 1000 points): card {int(got.n_inliers)} inliers, CPU "
+        f"{int(ref.n_inliers)}, same inlier set {same}, pose difference {dT:.2e}")
+    if not (same and int(got.n_inliers) == int(ref.n_inliers) and dT <= 1e-4):
+        raise AssertionError("PnP RANSAC on the card disagrees with the CPU")
+    return {"inliers": int(got.n_inliers), "same_inlier_set": same, "max_pose_diff": dT}
+
+
+def run_online_rgbd(imgs, deps, gt, cfg, card):
+    """Phase 6: the orbit with a blackout and a far replay through
+    SlamSystem.track_rgbd on the card."""
+    import torch
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem, TrackState
+
+    slam = SlamSystem(config=cfg, sensor=Sensor.RGBD)  # no device given: the card
+    black = torch.zeros_like(imgs[0])
+    frames = [(black, black) if k is None else (imgs[k], deps[k]) for k in ONLINE_SEQUENCE]
+    n_kf_before = []
+
+    def track(a, b, ts):
+        if round(ts * 10) == BLACKOUT.start:
+            n_kf_before.append(slam.n_kf_host)
+        return slam.track_rgbd(a, b, ts)
+
+    outs, states, wall, launches, syncs = drive(slam, frames, track)
+    import numpy as np
+
+    g0 = np.linalg.inv(gt[0])
+    ate = ate_of(slam, {j * 0.1: gt[k] @ g0 for j, k in enumerate(ONLINE_SEQUENCE) if k is not None})
+    seen = [o for o, k in zip(outs, ONLINE_SEQUENCE) if k is not None]
+    replay = next((j - REPLAY for j in range(REPLAY, REPLAY + 2) if outs[j] is not None), None)
+    far = next((j - FAR.start for j in range(FAR.start, FAR.stop) if outs[j] is not None), None)
+    rec = online_record(slam, outs, wall, launches, syncs, ate, card, ate_bound_m=ONLINE_ATE_BOUND,
+                        keyframes_before_blackout=n_kf_before[0], lost_on_black=[s.name for s in states[BLACKOUT]],
+                        replay_tracked_after=replay, far_relocalized_after=far,
+                        tracked_share=sum(o is not None for o in seen) / len(seen))
+    log(f"online RGB-D path: {rec['tracked']}/{rec['frames']} frames returned a pose, {n_kf_before[0]} keyframes "
+        f"before the blackout, black frames {rec['lost_on_black']}, replay tracked after {replay} frames, "
+        f"frames 30-32 relocalized after {far}, {slam.n_relocalized} relocalizations, {slam.n_resets} resets, "
+        f"{slam.n_kf_host} keyframes, {slam.n_loops_closed} loops, ATE {ate:.4f} m (bound {ONLINE_ATE_BOUND:.4f}), "
+        f"track ms p50 {rec['track_ms_p50']:.1f} p90 {rec['track_ms_p90']:.1f}, map ms p50 {rec['map_ms_p50']}, "
+        f"{rec['fps']:.2f} frames/s, host syncs {syncs / len(outs):.1f}/frame, launches {launches}, {card}")
+    if not n_kf_before[0] > 5:
+        raise AssertionError(f"only {n_kf_before[0]} keyframes before the blackout")
+    if any(outs[j] is not None or states[j] != TrackState.LOST for j in range(BLACKOUT.start, BLACKOUT.stop)):
+        raise AssertionError(f"a black frame was not lost: {rec['lost_on_black']}")
+    if replay is None or slam.n_resets != 0:
+        raise AssertionError(f"no pose on the first two replayed frames (resets {slam.n_resets})")
+    if far is None or slam.n_relocalized < 1:
+        raise AssertionError("frames 30-32 were not relocalized")
+    if rec["tracked_share"] < 0.9:
+        raise AssertionError(f"online path tracked {rec['tracked_share']:.3f} of the frames < 90%")
+    if not ate <= ONLINE_ATE_BOUND:
+        raise AssertionError(f"online path ATE {ate:.4f} m > {ONLINE_ATE_BOUND:.4f} m")
+    return rec, launches
+
+
+def run_stereo(name, cfg, n, step, ate_bound, min_tracked, card, cpu_check=False):
+    """Phases 7 and 8: a dolly through SlamSystem.track_stereo on the card."""
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch.models import frontend
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch.ops import orb
+    from orb_slam2v2_1_tpu_torch.utils import synthetic
+
+    left, right, gt = synthetic.stereo_dolly_frames(cfg, range(n), np.random.default_rng(3), dx=step[0], dz=step[1])
+    slam = SlamSystem(config=cfg, sensor=Sensor.STEREO)
+    outs, _, wall, launches, syncs = drive(slam, list(zip(left, right)), slam.track_stereo)
+    ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
+    extra = {"ate_bound_m": ate_bound}
+    if cpu_check:
+        # The first pair's stereo frame on the CPU (plain versions) and the card.
+        ocfg = orb.OrbConfig(n_features=cfg.n_features, n_levels=cfg.n_levels, scale=cfg.scale_factor,
+                             fast_threshold=cfg.fast_threshold, fast_min_threshold=cfg.fast_min_threshold)
+        K, dist, bf = torch.tensor(cfg.K), torch.tensor(cfg.dist), float(np.float32(cfg.bf))
+        fc = frontend.build_frame_stereo(left[0].cpu(), right[0].cpu(), K, dist, bf, 0, ocfg)
+        fg = frontend.build_frame_stereo(left[0], right[0], K.to(left.device), dist.to(left.device), bf, 0, ocfg)
+        same = bool(torch.equal(fc.kp_valid, fg.kp_valid.cpu()) and torch.equal(fc.level, fg.level.cpu()))
+        both = (fc.ur >= 0) & (fg.ur.cpu() >= 0)
+        d_ur = float((fc.ur - fg.ur.cpu())[both].abs().max())
+        agree = float(((fc.ur >= 0) == (fg.ur.cpu() >= 0)).float().mean())
+        extra.update(cpu_same_keypoints=same, cpu_stereo_agree=agree, cpu_max_ur_diff=d_ur)
+        log(f"{name}: first pair on the CPU: same keypoints {same}, stereo match agrees on {agree:.4f} of slots, "
+            f"max ur difference {d_ur:.2e} px")
+        if not (same and agree >= 0.99 and d_ur <= 1e-3):
+            raise AssertionError(f"{name}: the card's stereo frame disagrees with the CPU's")
+    rec = online_record(slam, outs, wall, launches, syncs, ate, card, **extra)
+    rec["untracked_frames"] = [j for j, o in enumerate(outs) if o is None]
+    log(f"{name}: {rec['tracked']}/{n} tracked (lost: {rec['untracked_frames']}), {slam.n_kf_host} keyframes, "
+        f"{rec['map_points']} points, "
+        f"ATE {ate:.4f} m (bound {ate_bound:.4f}), track ms p50 {rec['track_ms_p50']:.1f} p90 "
+        f"{rec['track_ms_p90']:.1f}, {rec['fps']:.2f} frames/s, host syncs {syncs / n:.1f}/frame, "
+        f"launches {launches}, {card}")
+    if rec["tracked"] < min_tracked:
+        raise AssertionError(f"{name}: tracked {rec['tracked']}/{n} < {min_tracked}")
+    if not ate <= ate_bound:
+        raise AssertionError(f"{name}: ATE {ate:.4f} m > {ate_bound:.4f} m")
+    if launches["fast_score_nms"] != 2 * n:
+        raise AssertionError(f"{name}: fast_score_nms {launches['fast_score_nms']} launches for {n} stereo frames")
+    return rec, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -316,7 +520,7 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     log(card)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build_s = kernels.build(verbose=True)
     log(f"kernel build: {build_s:.1f} s (nvcc), set-up total {time.perf_counter() - t0:.1f} s")
 
@@ -334,6 +538,12 @@ def main():
         f"with wrapper {kt.wrapper_us(lambda: kernels.empty_launch(dev)) / 1e3:.4f} ms")
     noise = torch.from_numpy(rng.uniform(0, 255, (cfg.height, cfg.width)).astype(np.float32)).to(dev)
     fast_res = check_fast(kt, imgs[0].contiguous(), noise, cfg, ocfg, floor_ms)
+    kcfg = config.SlamConfig(**kt.KITTI)
+    kocfg = orb.OrbConfig(n_features=kcfg.n_features, n_levels=kcfg.n_levels, scale=kcfg.scale_factor,
+                          fast_threshold=kcfg.fast_threshold, fast_min_threshold=kcfg.fast_min_threshold)
+    kitti_img = synthetic.stereo_dolly_frames(kcfg, [0], np.random.default_rng(3), dx=KITTI_STEP[0], dz=KITTI_STEP[1])[0][0]
+    kitti_noise = torch.from_numpy(rng.uniform(0, 255, (kcfg.height, kcfg.width)).astype(np.float32)).to(dev)
+    fast_res["shapes"] += check_fast(kt, kitti_img.contiguous(), kitti_noise, kcfg, kocfg, floor_ms, " (KITTI)")["shapes"]
     match_res = check_match(kt, dev, rng, floor_ms)
 
     # --- the main path ---
@@ -379,6 +589,18 @@ def main():
     # --- the loop path ---
     loop_rec, loop_launches, loop_poses, loop_ok = run_loop_path(all_imgs, all_deps, all_gt, cfg, dev, card)
 
+    # --- the online entry point: RGB-D with relocalization, stereo dolly, KITTI geometry ---
+    online_rec, online_launches = run_online_rgbd(all_imgs, all_deps, all_gt, cfg, card)
+    online_rec["pnp_on_card"] = check_pnp_on_card(dev)
+    dolly_rec, dolly_launches = run_stereo("stereo dolly", cfg, DOLLY_FRAMES, DOLLY_STEP, DOLLY_ATE_BOUND,
+                                              DOLLY_FRAMES, card, cpu_check=True)
+    kitti_rec, kitti_launches = run_stereo("KITTI geometry", kcfg, KITTI_FRAMES, KITTI_STEP, KITTI_ATE_BOUND,
+                                              KITTI_MIN_TRACKED, card)
+    for name, counts in (("online", online_launches), ("stereo dolly", dolly_launches), ("KITTI", kitti_launches)):
+        for kernel, count in counts.items():
+            if count <= 0:
+                raise AssertionError(f"kernel {kernel} was not launched by the {name} path")
+
     if out_dir:
         profile(offline, imgs, deps, cfg, out_dir)
         profile_loop(all_imgs, all_deps, cfg, dev, out_dir)
@@ -394,11 +616,14 @@ def main():
     def entry(name, res, src, line):
         return {"name": name, "route": "cuda", "source": f"orb_slam2v2_1_tpu_torch/csrc/{src}",
                 "replaces": f"orb_slam2v2_1_tpu/ops/pallas_kernels.py:{line}", "launches": loop_launches[name],
-                "launches_by_path": {"rgbd_96_frames": launches[name], "loop_321_frames": loop_launches[name]},
+                "launches_by_path": {"rgbd_96_frames": launches[name], "loop_321_frames": loop_launches[name],
+                                     "online_rgbd": online_launches[name], "stereo_dolly": dolly_launches[name],
+                                     "stereo_kitti": kitti_launches[name]},
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": None,
                 "wrapper_ms": res["wrapper_ms"], "empty_launch_ms": floor_ms, "shapes": res["shapes"]}
 
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
         "kernels": [entry("fast_score_nms", fast_res, "fast_score_nms.cu", 137),
                     entry("masked_best_two", match_res, "masked_best_two.cu", 225)],
@@ -406,6 +631,9 @@ def main():
                       "ate_m": ate, "ate_anchored_m": ate_anchored, "wall_s": wall,
                       "fps": N_FRAMES / wall, "host_syncs": syncs, "card": card},
         "loop_path": loop_rec,
+        "online_rgbd": online_rec,
+        "stereo_dolly": dolly_rec,
+        "stereo_kitti": kitti_rec,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -35,14 +35,24 @@ import sys
 BENCH = dict(fx=550.0, fy=550.0, cx=320.0, cy=240.0, width=640, height=480, n_features=1000,
              max_keyframes=128, max_map_points=16384, fps=10.0, bf=44.0, th_depth=100.0)
 ORBIT_TOTAL = 321
-# Motion model, local map, and the batched fuse of a keyframe insertion; then
-# loop closing's searches: one Sim3 candidate's projection search, and the loop
-# fusion at its smallest buckets (16 keyframes x 4096 loop-side points).
-SEARCH_SHAPES = (("motion", (1, 1000, 1000)), ("local_map", (1, 4096, 1000)), ("fuse", (20, 1000, 1000)),
-                 ("sim3", (1, 1000, 1000)), ("loop_fuse", (16, 4096, 1000)))
-# (max_dist, nn_ratio) of the callers of match_projection.
-SEARCH_PARAMS = {"motion": (100, 0.9), "local_map": (100, 0.8), "fuse": (50, 1.0),
-                 "sim3": (100, 1.0), "loop_fuse": (50, 1.0)}
+# The widest configuration the repository runs: bench.py's KITTI-geometry
+# stereo leg (1241x376, 2000 features).
+KITTI = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241, height=376, n_features=2000,
+             max_keyframes=64, max_map_points=16384, fps=10.0, bf=386.14, th_depth=35.0)
+# (name, (batch, queries, targets), (frame width, frame height), (max_dist,
+# nn_ratio)) of the callers of match_projection: motion model, local map, and
+# the batched fuse of a keyframe insertion; then loop closing's searches: one
+# Sim3 candidate's projection search, and the loop fusion at its smallest
+# buckets (16 keyframes x 4096 loop-side points); then the KITTI geometry's
+# (2000 keypoints a frame) motion model, local map and fuse.
+VGA = (640, 480)
+KITTI_FRAME = (KITTI["width"], KITTI["height"])
+SEARCH_SHAPES = (("motion", (1, 1000, 1000), VGA, (100, 0.9)), ("local_map", (1, 4096, 1000), VGA, (100, 0.8)),
+                 ("fuse", (20, 1000, 1000), VGA, (50, 1.0)), ("sim3", (1, 1000, 1000), VGA, (100, 1.0)),
+                 ("loop_fuse", (16, 4096, 1000), VGA, (50, 1.0)),
+                 ("kitti_motion", (1, 2000, 2000), KITTI_FRAME, (100, 0.9)),
+                 ("kitti_local_map", (1, 4096, 2000), KITTI_FRAME, (100, 0.8)),
+                 ("kitti_fuse", (20, 2000, 2000), KITTI_FRAME, (50, 1.0)))
 
 
 def card_line() -> str:
@@ -118,10 +128,10 @@ def measure(fn) -> dict:
     return {"graph_us": graph_us(fn), "busy_us": busy, "kernels": n_kernels, "wrapper_us": wrapper_us(fn)}
 
 
-def search_inputs(rng, dev, b, q, n):
+def search_inputs(rng, dev, b, q, n, width, height):
     """Queries, radius and targets of one search shape, from `rng`: random
     descriptors with duplicates (ties of the best distance), positions
-    uniform over a 640x480 frame, 10% invalid."""
+    uniform over a width x height frame, 10% invalid."""
     import numpy as np
     import torch
     from orb_slam2v2_1_tpu_torch.ops import hamming
@@ -129,7 +139,7 @@ def search_inputs(rng, dev, b, q, n):
     def feats(count):
         words = hamming.words_from_uint32(rng.integers(0, 2**32, (b, count, 8), dtype=np.uint32))
         words[:, 5::7] = words[:, :1]
-        xy = np.stack([rng.uniform(0, 640, (b, count)), rng.uniform(0, 480, (b, count))], -1)
+        xy = np.stack([rng.uniform(0, width, (b, count)), rng.uniform(0, height, (b, count))], -1)
         lvl = rng.integers(0, 8, (b, count))
         valid = rng.uniform(size=(b, count)) > 0.1
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in
@@ -201,9 +211,8 @@ def main() -> int:
             min_threshold=ocfg.fast_min_threshold)
     cases["FAST stage of one frame"] = lambda: fast_stage(levels, counts, ocfg)
     rng = np.random.default_rng(0)
-    for name, (b, q, n) in SEARCH_SHAPES:
-        qf, r, tf = search_inputs(rng, dev, b, q, n)
-        max_dist, ratio = SEARCH_PARAMS[name]
+    for name, (b, q, n), frame, (max_dist, ratio) in SEARCH_SHAPES:
+        qf, r, tf = search_inputs(rng, dev, b, q, n, *frame)
         cases[f"masked_best_two best-two {name} {b}x{q}x{n}"] = (
             lambda qf=qf, r=r, tf=tf: matching.masked_best_two(*qf, r, *tf))
         cases[f"match_projection {name} {b}x{q}x{n}"] = (

@@ -1,7 +1,7 @@
 """Per-frame program: frame construction, tracking, keyframe insertion.
 
-Port of the JAX package's `models/frontend.py` for RGB-D (stereo frames and
-the async split pipeline are not ported yet). The reference fuses a frame
+Port of the JAX package's `models/frontend.py` for RGB-D and stereo frames
+(the async split pipeline is not ported yet). The reference fuses a frame
 into one device program with `lax.cond` branches; here the two tracking
 fallbacks (wide-window retry, reference-keyframe search) are host branches,
 each decided by one counted device read (`sync.host`).
@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from .. import sync
-from ..ops import lie, orb, undistort
+from ..ops import lie, orb, stereo, undistort
 from . import local_mapping, tracking
 from .map_state import MapState, append_keyframe, mp_observation_count, refresh_covis, update_mp_stats_window
 from .tracking import FrameData
@@ -59,6 +59,27 @@ def build_frame_only(img, depth, K, dist, bf, frame_id, config: orb.OrbConfig,
                      width: int, height: int) -> FrameData:
     """Frame construction alone (initialization phase)."""
     return _build_frame(img, depth, K, dist, bf, config, frame_id, width, height)
+
+
+def build_frame_stereo(img_left, img_right, K, dist, bf, frame_id, config: orb.OrbConfig) -> FrameData:
+    """Stereo frame from a rectified pair (the Frame stereo constructor,
+    src/Frame.cc:61-117): ORB on both images (two `fast_score_nms`
+    launches), row matching with min_z = bf / fx, SAD subpixel disparity,
+    undistortion."""
+    fl = orb.extract_orb(img_left, config)
+    fr = orb.extract_orb(img_right, config)
+    ur, _, ok = stereo.match_stereo(
+        fl.xy, fl.level, fl.desc_pm1, fl.valid, fr.xy, fr.level, fr.desc_pm1, fr.valid, bf, K[0], bf / K[0],
+    )
+    ur, depth = stereo.sad_subpixel_refine(img_left, img_right, fl.xy, ur, ok, bf)
+    n = fl.xy.shape[0]
+    dev = img_left.device
+    return FrameData(
+        xy=undistort.undistort_points(fl.xy, K, dist), level=fl.level, angle=fl.angle, desc=fl.desc,
+        desc_pm1=fl.desc_pm1, kp_valid=fl.valid, ur=ur, depth=depth,
+        pose=torch.eye(4, dtype=torch.float32, device=dev),
+        mp=torch.full((n,), -1, dtype=torch.int32, device=dev), frame_id=frame_id,
+    )
 
 
 def process_frame_impl(state: MapState, img, depth, last: FrameData, velocity,

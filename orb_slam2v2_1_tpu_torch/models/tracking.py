@@ -2,8 +2,7 @@
 
 Port of the JAX package's `models/tracking.py`. Acceptance thresholds are
 the reference's (>= 10 inliers after motion-model tracking, >= 30 after
-local-map tracking, decided by the callers). The temporal visual-odometry
-points (`vo_points=True`) are not ported yet and raise NotImplementedError.
+local-map tracking, decided by the callers).
 """
 
 from __future__ import annotations
@@ -114,16 +113,30 @@ def _optimize(state, cur, cur_mp, T0, K, bf):
 def track_motion_model(state: MapState, cur: FrameData, last: FrameData, T_pred, K, bf,
                        radius_th: float, vo_points: bool = False):
     """SearchByProjection(cur, last, th) + PoseOptimization
-    (Tracking::TrackWithMotionModel)."""
-    if vo_points:
-        raise NotImplementedError("vo_points (localization-only VO points) is not ported yet")
+    (Tracking::TrackWithMotionModel).
+
+    `vo_points=True` (localization-only mode, stereo/RGB-D) also tracks
+    against temporal points unprojected from the last frame's depth, the
+    reference's visual-odometry points (UpdateLastFrame, src/Tracking.cc:
+    962-1008): they steer the pose but never become associations."""
     q_mp = last.mp
     qc = torch.clamp(q_mp, min=0).long()
     has_mp = (q_mp >= 0) & last.kp_valid & state.mp_valid[qc]
     pw = state.mp_pos[qc]
+    q_has = has_mp
+    if vo_points:
+        Twc_R = last.pose[:3, :3].T
+        Twc_t = -Twc_R @ last.pose[:3, 3]
+        z = last.depth
+        xc = (last.xy[:, 0] - K[2]) * z / K[0]
+        yc = (last.xy[:, 1] - K[3]) * z / K[1]
+        pw_vo = torch.stack([xc, yc, z], -1) @ Twc_R.T + Twc_t
+        use_vo = ~has_mp & last.kp_valid & (z > 0)
+        pw = torch.where(use_vo[:, None], pw_vo, pw)
+        q_has = has_mp | use_vo
     pred_xy = project(T_pred, pw, K)
     pc_z = (T_pred[2, :3] @ pw.T) + T_pred[2, 3]
-    q_has = has_mp & (pc_z > 0)
+    q_has = q_has & (pc_z > 0)
 
     radius = radius_th * _level_pow(last.level)
     m = matching.match_projection(
@@ -134,6 +147,21 @@ def track_motion_model(state: MapState, cur: FrameData, last: FrameData, T_pred,
     ok = matching.rotation_consistency(dang, m.ok)
     N = cur.mp.shape[0]
     n_matches = torch.sum(ok, dtype=torch.int32)
+    if vo_points:
+        # Optimize in last-frame slot space over explicit positions, so VO
+        # points (no map id) count; only map-point matches are associated.
+        tgt_ur = cur.ur[m.idx]
+        obs = ba.Obs(
+            cam_idx=torch.zeros(N, dtype=torch.int32, device=pw.device),
+            pt_idx=torch.arange(N, dtype=torch.int32, device=pw.device),
+            target=torch.cat([cur.xy[m.idx], tgt_ur[:, None]], dim=-1),
+            inv_sigma2=inv_level_sigma2(pw.device)[torch.clamp(cur.level[m.idx], 0, N_LEVELS - 1).long()],
+            is_stereo=tgt_ur >= 0,
+            valid=ok,
+        )
+        Tcw, inlier_last, n_inliers = ba.pose_optimization(T_pred, pw, obs, K, bf)
+        okm = ok & has_mp & inlier_last
+        return Tcw, _associate(N, okm, m.idx, q_mp), TrackStats(n_matches=n_matches, n_inliers=n_inliers)
     cur_mp = _associate(N, ok, m.idx, q_mp)
     Tcw, cur_mp, n_inliers = _optimize(state, cur, cur_mp, T_pred, K, bf)
     return Tcw, cur_mp, TrackStats(n_matches=n_matches, n_inliers=n_inliers)

@@ -1,7 +1,8 @@
 """Image pyramid + Gaussian kernel.
 
 Port of the JAX package's `ops/image.py` (`pyramid_shapes`, `build_pyramid`,
-`_gauss_kernel`). Every level is resized from the base image, as in the
+`_gauss_kernel`), and `gather_windows`, the batched `lax.dynamic_slice` that
+ORB patches and the stereo SAD windows are cut with. Every level is resized from the base image, as in the
 reference. The reference resizes with `jax.image.resize(..., "bilinear")`,
 which for a downscale is an antialiased triangle filter whose width grows
 with the scale factor; the port builds the same separable weight matrices
@@ -64,3 +65,18 @@ def _gauss_kernel(size: int, sigma: float, device=None) -> torch.Tensor:
     x = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
     k = torch.exp(-0.5 * (x / sigma) ** 2)
     return k / torch.sum(k)
+
+
+def gather_windows(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(K, h, w) windows of img (H, W) at start rows y0 and columns x0 (K,),
+    as `lax.dynamic_slice` cuts them: a negative start counts from the end,
+    then the start is clamped so the whole window fits."""
+    H, W = img.shape
+
+    def start(s, size, n):
+        s = s.long()
+        return torch.clamp(torch.where(s < 0, s + n, s), 0, n - size)
+
+    rows = (start(y0, h, H)[:, None] + torch.arange(h, device=img.device))[:, :, None]
+    cols = (start(x0, w, W)[:, None] + torch.arange(w, device=img.device))[:, None, :]
+    return img[rows, cols]

@@ -90,25 +90,11 @@ class OrbFeatures(NamedTuple):
 
 
 def _gather_patches(img: torch.Tensor, yx: torch.Tensor, half: int = HALF_PATCH) -> torch.Tensor:
-    """Gather (2*half+1)^2 patches centered at yx (K, 2) -> (K, P, P).
-
-    Start indices follow `lax.dynamic_slice`: a negative start counts from
-    the end, then the start is clamped so the whole patch fits (this only
-    happens for padding keypoints; valid ones sit >= the border from the
-    edge)."""
+    """Gather (2*half+1)^2 patches centered at yx (K, 2) -> (K, P, P), with
+    `lax.dynamic_slice`'s start rule (`image.gather_windows`; it only moves
+    padding keypoints: valid ones sit >= the border from the edge)."""
     size = 2 * half + 1
-    h, w = img.shape
-
-    def start(c, n):
-        s = c.long() - half
-        return torch.clamp(torch.where(s < 0, s + n, s), 0, n - size)
-
-    y0 = start(yx[:, 0], h)
-    x0 = start(yx[:, 1], w)
-    r = torch.arange(size, device=img.device)
-    rows = (y0[:, None] + r)[:, :, None]
-    cols = (x0[:, None] + r)[:, None, :]
-    return img[rows, cols]
+    return image_ops.gather_windows(img, yx[:, 0] - half, yx[:, 1] - half, size, size)
 
 
 def blur_patches(raw: torch.Tensor, sigma: float = 3.0) -> torch.Tensor:

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from . import lie
-from .topk import stable_topk
+from .topk import random_subsets
 
 N_HYP = 256
 CHI2_SIM3 = 9.210  # 2-dof 99% gate, both directions
@@ -97,10 +97,7 @@ def _reproj(S12, p1_cam, p2_cam, uv1, uv2, K):
 def hypothesis_sets(valid: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """(N_HYP, 3) indices of 3 distinct valid correspondences per
     hypothesis: the top 3 of Gumbel noise over the valid ones."""
-    u = torch.rand((N_HYP, valid.shape[0]), generator=generator, device=generator.device).to(valid.device)
-    g = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0 - 1e-7)))
-    g = torch.where(valid[None, :], g, float("-inf"))
-    return stable_topk(g, 3)[1]
+    return random_subsets(valid, N_HYP, 3, generator)
 
 
 def sim3_ransac(p1_cam, p2_cam, uv1, uv2, sigma2_1, sigma2_2, valid, K,

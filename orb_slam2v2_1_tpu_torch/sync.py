@@ -31,9 +31,10 @@ def host(t: torch.Tensor):
 
 def host_numpy(*tensors: torch.Tensor) -> list:
     """The tensors as numpy arrays, fetched together and counted as one
-    device-to-host round."""
+    device-to-host round. The arrays are copies, also of CPU tensors: a
+    caller may keep or change them without touching the tensors."""
     _count()
-    return [t.detach().cpu().numpy() for t in tensors]
+    return [t.detach().to("cpu", copy=True).numpy() for t in tensors]
 
 
 def reset() -> None:

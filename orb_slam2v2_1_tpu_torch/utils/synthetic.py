@@ -5,8 +5,10 @@ needs: `blob_texture` and `make_room` (numpy/scipy, verbatim), `PlaneScene`,
 and `render` (per-pixel ray/plane intersection + bilinear texture lookup) in
 PyTorch on the scene's device. `orbit_frames` reproduces the headline
 benchmark's sequence (bench.py `orbit_frames`): a two-revolution in-place
-yaw orbit in the room's first six planes. The desk and adversarial scenes
-and the photometric degradations are not ported yet.
+yaw orbit in the room's first six planes. `stereo_dolly_frames` renders the
+rectified pairs of a sideways-and-forward dolly through the whole room
+(evaluate.py's `stereo_dolly`, bench.py's KITTI leg). The desk and
+adversarial scenes and the photometric degradations are not ported yet.
 """
 
 from __future__ import annotations
@@ -149,3 +151,31 @@ def orbit_frames(cfg, n_frames: int, device=None, total: int | None = None):
         imgs.append(img)
         deps.append(depth)
     return torch.stack(imgs), torch.stack(deps), gt
+
+
+def dolly_pose(i: int, dx: float = 0.05, dz: float = 0.04) -> np.ndarray:
+    """Tcw of step i of the dolly: the camera moves +dx in x and +dz in z per
+    step, facing +z (evaluate.py `stereo_dolly`; bench.py's KITTI leg uses
+    dx=0.08, dz=0.05)."""
+    T = np.eye(4, dtype=np.float32)
+    T[0, 3] = -dx * i
+    T[2, 3] = -dz * i
+    return T
+
+
+def stereo_dolly_frames(cfg, steps, rng: np.random.Generator, device=None, dx: float = 0.05, dz: float = 0.04):
+    """Rectified stereo pairs at the given dolly steps in `make_room(rng)`,
+    the right camera shifted by the baseline bf / fx, rendered on `device`
+    (None: the card). Returns (left (n,H,W), right (n,H,W)) tensors and the
+    ground-truth Tcw (n,4,4) numpy."""
+    device = device_mod.resolve(device)
+    room = make_room(rng, device=device)
+    K = torch.tensor(cfg.K, dtype=torch.float32, device=device)
+    gt = np.stack([dolly_pose(i, dx, dz) for i in steps])
+    lefts, rights = [], []
+    for Tcw in gt:
+        Tr = Tcw.copy()
+        Tr[0, 3] -= cfg.bf / cfg.fx
+        lefts.append(render(room, torch.from_numpy(Tcw).to(device), K, cfg.width, cfg.height)[0])
+        rights.append(render(room, torch.from_numpy(Tr).to(device), K, cfg.width, cfg.height)[0])
+    return torch.stack(lefts), torch.stack(rights), gt

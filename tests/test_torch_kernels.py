@@ -57,9 +57,10 @@ def _pyramid(rng, device="cpu", shape=(480, 640), noise=True):
 
 # The main path's three shapes, then ragged ones: a few queries, three target
 # tiles (the double buffer is reused), and an odd query count in each of the
-# kernel's regimes (under 2048 queries, under 8192, above).
+# kernel's regimes (under 2048 queries, under 8192, above); then the KITTI
+# geometry's (2000 features): motion model, local map, batched fuse.
 SEARCH_SHAPES = [(1, 1000, 1000), (1, 4096, 1000), (20, 1000, 1000), (3, 7, 5), (2, 50, 1031),
-                 (1, 2501, 1500), (3, 3001, 700)]
+                 (1, 2501, 1500), (3, 3001, 700), (1, 2000, 2000), (1, 4096, 2000), (20, 2000, 2000)]
 RANK = dict(cell=16, border=19, threshold=20.0, min_threshold=7.0)
 
 
@@ -115,7 +116,7 @@ class TestCpuPath:
 
 def _entry_points():
     """Each entry point that creates tensors, as a call taking `device`."""
-    from orb_slam2v2_1_tpu_torch.models import map_state, offline, tracking
+    from orb_slam2v2_1_tpu_torch.models import map_state, offline, system, tracking
     from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
     cfg = config.SlamConfig(fx=60.0, fy=60.0, cx=48.0, cy=40.0, width=96, height=80, n_features=100,
@@ -132,7 +133,11 @@ def _entry_points():
         # blank frames then fail in map initialization or run through.
         return offline.track_sequence_rgbd(frames, frames + 1.0, cfg, device=device)
 
+    def slam(device):
+        return system.SlamSystem(config=cfg, sensor=system.Sensor.RGBD, device=device).map.kf_pose.device
+
     return {
+        "SlamSystem": slam,
         "make_room": lambda device: synthetic.make_room(rng, tex_size=16, device=device).tex.device,
         "orbit_frames": lambda device: synthetic.orbit_frames(cfg, 1, device=device)[0].device,
         "empty_map": lambda device: map_state.empty_map(2, 16, 8, device=device).kf_pose.device,
@@ -147,7 +152,7 @@ class TestDeviceDefault:
     given and no card they raise; they do not carry on on the CPU."""
 
     @pytest.mark.parametrize("name", ["make_room", "orbit_frames", "empty_map", "from_numpy",
-                                      "frame_from_numpy", "track_sequence_rgbd"])
+                                      "frame_from_numpy", "track_sequence_rgbd", "SlamSystem"])
     def test_raises_without_card_and_runs_on_cpu(self, monkeypatch, name):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         call = _entry_points()[name]
@@ -181,16 +186,18 @@ def _assert_match_equal(got, ref):
 
 @pytest.mark.cuda
 class TestOnCard:
-    def test_fast_score_nms_all_levels(self, cuda_device, rng):
+    @pytest.mark.parametrize("shape", [(480, 640), (376, 1241)])
+    def test_fast_score_nms_all_levels(self, cuda_device, rng, shape):
         """Bit-exact against the plain version over whole levels of a
-        640x480 image, borders included."""
-        for lvl in _pyramid(rng, cuda_device):
+        640x480 and a KITTI 1241x376 image (no level width a multiple of 16
+        bytes), borders included."""
+        for lvl in _pyramid(rng, cuda_device, shape):
             got = kernels.fast_score_nms(lvl)
             torch.cuda.synchronize()
             assert torch.equal(got, fast.nms3(fast.fast_score(lvl)))
 
     @pytest.mark.parametrize("noise", [True, False])
-    @pytest.mark.parametrize("shape", [(480, 640), (97, 133)])
+    @pytest.mark.parametrize("shape", [(480, 640), (97, 133), (376, 1241)])
     def test_fast_cells_pyramid(self, cuda_device, rng, shape, noise):
         """The cell form, one launch for all levels, bit-exact against
         `rank_cells` of the plain suppressed score: ties and empty cells
@@ -262,3 +269,59 @@ class TestOnCard:
             kernels.masked_best_two(*q, torch.ones(1, 3, device=cuda_device), *t, -1, 1)
         with pytest.raises(ValueError, match="max_dist"):
             kernels.masked_match(*q, torch.ones(1, 4, device=cuda_device), *t, -1, 1, 1 << 20, 0.9)
+
+    def test_relocalization_on_card(self, cuda_device):
+        """`relocalization._match_and_pnp` on the card (its guided search is
+        kernel 2's match form, 1 x 500 x 500 at ratio 1.0) against the CPU
+        plain path, on a map the port built on the CPU from frames 0-11 of
+        the orbit at 320x240 and frame 8 as the query, with the same
+        hypothesis sets: the same verdict, inliers within 2, pose within
+        1 mm / 0.05 deg."""
+        from orb_slam2v2_1_tpu_torch.models import frontend, map_state, offline, relocalization, tracking
+        from orb_slam2v2_1_tpu_torch.ops import orb, pnp
+        from orb_slam2v2_1_tpu_torch.utils import config, synthetic
+
+        cfg = config.SlamConfig(fx=275.0, fy=275.0, cx=160.0, cy=120.0, width=320, height=240, n_features=500,
+                                max_keyframes=16, max_map_points=4096, fps=3.0, bf=44.0, th_depth=100.0)
+        imgs, deps, _ = synthetic.orbit_frames(cfg, 12, device="cpu", total=321)
+        _, ok, state = offline.track_sequence_rgbd(imgs.numpy(), deps.numpy(), cfg, device="cpu")
+        assert ok.all()
+        K = torch.tensor(cfg.K)
+        frame = frontend.build_frame_only(imgs[8], deps[8], K, torch.zeros(5), 44.0, torch.tensor(40, dtype=torch.int32),
+                                          orb.OrbConfig(n_features=500), cfg.width, cfg.height)
+        kf = int(torch.argmax((state.kf_frame_id == 9).to(torch.int32)))
+
+        def sets(valid):
+            return pnp.sample_sets(valid.cpu(), torch.Generator().manual_seed(7)).to(valid.device)
+
+        ref = relocalization._match_and_pnp(state, frame, kf, K, 44.0, sets=sets)
+        g_state = map_state.from_numpy(map_state.to_numpy(state), device=cuda_device)
+        g_frame = tracking.frame_from_numpy(tracking.frame_to_numpy(frame), device=cuda_device)
+        kernels.reset_launch_counts()
+        got = relocalization._match_and_pnp(g_state, g_frame, kf, K.to(cuda_device), 44.0, sets=sets)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["masked_best_two"] == 1
+        assert bool(got[0]) == bool(ref[0]) and int(ref[3]) >= 50
+        assert abs(int(got[3]) - int(ref[3])) <= 2
+        Tg, Tr = got[1].cpu().double().numpy(), ref[1].double().numpy()
+        assert np.linalg.norm(Tg[:3, :3].T @ Tg[:3, 3] - Tr[:3, :3].T @ Tr[:3, 3]) <= 1e-3
+        assert np.degrees(np.arccos(np.clip((np.trace(Tg[:3, :3].T @ Tr[:3, :3]) - 1) / 2, -1, 1))) <= 0.05
+
+    def test_pnp_eigh_on_card(self, cuda_device, rng):
+        """The batched float64 eigen solve of the DLT on the card against the
+        CPU: the same inlier sets for well-conditioned (exact) samples."""
+        from orb_slam2v2_1_tpu_torch.ops import pnp
+
+        n = 300
+        pc = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(2, 6, n)], -1)
+        uv = np.stack([300 * pc[:, 0] / pc[:, 2] + 160, 300 * pc[:, 1] / pc[:, 2] + 120], -1)
+        uv[::5] = rng.uniform([0, 0], [320, 240], (n // 5, 2))
+        args = [torch.from_numpy(a.astype(np.float32)) for a in (pc, uv, np.ones(n), np.ones(n))]
+        args[3] = args[3] > 0
+        K = torch.tensor([300.0, 300.0, 160.0, 120.0])
+        sets = pnp.sample_sets(args[3], torch.Generator().manual_seed(1))
+        ref = pnp.pnp_ransac(*args, K, sets=sets)
+        got = pnp.pnp_ransac(*(a.to(cuda_device) for a in args), K.to(cuda_device), sets=sets.to(cuda_device))
+        assert bool(got.success) and bool(ref.success) and int(got.n_inliers) == int(ref.n_inliers) == 240
+        assert torch.equal(got.inliers.cpu(), ref.inliers)
+        np.testing.assert_allclose(got.Tcw.cpu().numpy(), ref.Tcw.numpy(), atol=1e-4)

@@ -113,10 +113,10 @@ def loop_runs(frames):
     return ref, got, jcl, tcl
 
 
-def test_loop_closer_not_ported(loop_runs, runs):
-    """The slice with a loop closer (the name dates from when the port raised
-    here): identical `ok`, poses within 2 mm / 0.05 deg of the reference's
-    run with its loop closer, equal keyframe and insertion counts, no closure
+def test_slice_with_loop_closer(loop_runs, runs):
+    """The slice with a loop closer: identical `ok`, poses within 2 mm /
+    0.05 deg of the reference's run with its loop closer, equal keyframe and
+    insertion counts, no closure
     on 16 frames and no global BA left running. The closer's vocabulary
     prunes the reference-keyframe and triangulation searches, so the map
     differs from the run without one."""

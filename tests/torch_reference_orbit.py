@@ -4,6 +4,8 @@
     python3 tests/torch_reference_orbit.py [--frames 321] [--no-loop] [--out FILE]
     python3 tests/torch_reference_orbit.py --compare-small
     python3 tests/torch_reference_orbit.py --sensitivity
+    python3 tests/torch_reference_orbit.py --online [--stereo] [--out FILE]
+    python3 tests/torch_reference_orbit.py --stereo [--out FILE]
 
 The number that `chip_smoke.py` holds the PyTorch port's loop path to: the
 same orbit (the room, seed and poses of `bench.orbit_frames`), the same
@@ -21,6 +23,13 @@ two trajectories drift apart. `--sensitivity` gives that drift its scale: the
 reference alone, on the first 200 of those frames without a loop closer,
 against itself on the same frames with uniform noise of +-0.001 gray levels
 (of 255) added.
+
+`--online` and `--stereo` run the reference's online entry point,
+`SlamSystem` in sync mode, on exactly the frames of `chip_smoke.py`'s
+phases 6-8 (its ONLINE_SEQUENCE, the stereo dolly of `evaluate.py` and the
+KITTI geometry of `bench.py`): tracked frames, keyframes, relocalizations and
+the ATE (`utils.trajectory.ate_rmse` without scale). Twice these ATEs are
+`chip_smoke.py`'s bounds for the port.
 """
 
 import json
@@ -148,12 +157,104 @@ def compare_small():
     }), flush=True)
 
 
+def _slam_ate(slam, gt_Tcw):
+    from orb_slam2v2_1_tpu.utils.trajectory import ate_rmse
+
+    est = slam.trajectory.absolute_poses(np.asarray(slam.map.kf_pose))
+    return ate_rmse(est, {t: np.linalg.inv(T) for t, T in gt_Tcw.items()}, align_scale=False)
+
+
+def online():
+    """chip_smoke.py phase 6 on the reference: the orbit with a blackout and
+    a far replay through SlamSystem.track_rgbd."""
+    import chip_smoke
+    from orb_slam2v2_1_tpu.models import relocalization
+    from orb_slam2v2_1_tpu.models.system import Sensor, SlamSystem
+
+    cfg = SlamConfig(**BENCH)
+    gt = orbit_poses(96)
+    imgs, deps = render_orbit(cfg, gt)
+    relocs = []
+    real = relocalization.relocalize
+
+    def counted(*a, **k):
+        out = real(*a, **k)
+        relocs.append(bool(out[0]))
+        return out
+
+    relocalization.relocalize = counted
+    slam = SlamSystem(config=cfg, sensor=Sensor.RGBD)
+    black = np.zeros_like(imgs[0])
+    outs, states, kf_before = [], [], None
+    t0 = time.time()
+    for j, k in enumerate(chip_smoke.ONLINE_SEQUENCE):
+        if j == chip_smoke.BLACKOUT.start:
+            kf_before = slam.n_kf_host
+        outs.append(slam.track_rgbd(black if k is None else imgs[k], black if k is None else deps[k], j * 0.1))
+        states.append(slam.state.name)
+    wall = time.time() - t0
+    relocalization.relocalize = real
+    g0 = np.linalg.inv(gt[0])
+    ate = _slam_ate(slam, {j * 0.1: gt[k] @ g0 for j, k in enumerate(chip_smoke.ONLINE_SEQUENCE) if k is not None})
+    seen = [o for o, k in zip(outs, chip_smoke.ONLINE_SEQUENCE) if k is not None]
+    return {"path": "online_rgbd", "package": "orb_slam2v2_1_tpu (JAX, CPU)", "frames": len(outs),
+            "returned_pose": sum(o is not None for o in outs), "tracked_share": sum(o is not None for o in seen) / len(seen),
+            "keyframes_before_blackout": kf_before, "black_states": states[chip_smoke.BLACKOUT],
+            "replay_returned": [o is not None for o in outs[chip_smoke.REPLAY:chip_smoke.REPLAY + 2]],
+            "far_returned": [o is not None for o in outs[chip_smoke.FAR]], "relocalized": sum(relocs),
+            "resets": slam.n_resets, "keyframes": slam.n_kf_host, "loops_closed": slam.n_loops_closed,
+            "ate_m": ate, "wall_s": wall, "stats": slam.stats()}
+
+
+def stereo():
+    """chip_smoke.py phases 7 and 8 on the reference: the stereo dolly and the
+    KITTI geometry through SlamSystem.track_stereo."""
+    import chip_smoke
+    from orb_slam2v2_1_tpu.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu.utils import synthetic
+    from orb_slam2v2_1_tpu_torch.kernel_times import KITTI
+
+    out = []
+    for name, kw, n, (dx, dz) in (("stereo_dolly", BENCH, chip_smoke.DOLLY_FRAMES, chip_smoke.DOLLY_STEP),
+                                  ("stereo_kitti", KITTI, chip_smoke.KITTI_FRAMES, chip_smoke.KITTI_STEP)):
+        cfg = SlamConfig(**kw)
+        room = synthetic.make_room(np.random.default_rng(3))
+        K = jnp.asarray(cfg.K)
+        slam = SlamSystem(config=cfg, sensor=Sensor.STEREO)
+        gt, n_ok = {}, 0
+        t0 = time.time()
+        for i in range(n):
+            Tcw = np.eye(4, dtype=np.float32)
+            Tcw[0, 3], Tcw[2, 3] = -dx * i, -dz * i
+            Tr = Tcw.copy()
+            Tr[0, 3] -= cfg.bf / cfg.fx
+            il, _ = synthetic.render(room, jnp.asarray(Tcw), K, cfg.width, cfg.height)
+            ir, _ = synthetic.render(room, jnp.asarray(Tr), K, cfg.width, cfg.height)
+            n_ok += slam.track_stereo(il, ir, i * 0.1) is not None
+            gt[i * 0.1] = Tcw
+        out.append({"path": name, "package": "orb_slam2v2_1_tpu (JAX, CPU)", "frames": n, "tracked": n_ok,
+                    "keyframes": slam.n_kf_host, "ate_m": _slam_ate(slam, gt), "wall_s": time.time() - t0})
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args == ["--compare-small"]:
         return compare_small()
     if args == ["--sensitivity"]:
         return sensitivity()
+    if args and args[0] in ("--online", "--stereo"):
+        if not set(args) - {"--online", "--stereo", "--out"} <= ({args[-1]} if "--out" in args else set()):
+            raise SystemExit(__doc__)
+        out = args[args.index("--out") + 1] if "--out" in args else None
+        records = ([online()] if "--online" in args else []) + (stereo() if "--stereo" in args else [])
+        for record in records:
+            print(json.dumps(record, default=str), flush=True)
+        if out:
+            os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+            with open(out, "w") as f:
+                json.dump(records, f, indent=1, default=str)
+        return None
     n_frames, with_loop, out = 321, True, None
     while args:
         if args[0] == "--frames":
