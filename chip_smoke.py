@@ -14,10 +14,10 @@ Phases, each of which raises (exit code != 0) on failure:
      main path's shapes, on the card, exact: the score map per level, the
      per-cell best corner for the whole pyramid (rendered frame and uniform
      noise, at 640x480 and at the KITTI geometry's 1241x376), (idx, best,
-     second) and the finished one-to-one match at the eight search shapes
+     second) and the finished one-to-one match at the nine search shapes
      (motion model, local map, batched fuse, loop closing's Sim3 search and
-     loop fusion, and the KITTI geometry's motion model, local map and fuse with
-     2000 keypoints). Per form: the device time without the host (100 calls
+     loop fusion, the KITTI geometry's motion model, local map and fuse with
+     2000 keypoints, and the monocular motion model at radius 15). Per form: the device time without the host (100 calls
      in one CUDA graph between two events), the wrapper-included time and the
      plain version's (events around one call, median of 20), the bound
      reckoned from this run's inputs, and the empty kernel's launch;
@@ -51,7 +51,17 @@ Phases, each of which raises (exit code != 0) on failure:
   8. the KITTI geometry: bench.py's KITTI leg (1241x376, 2000 features, 64
      keyframes, 60 pairs, 8 cm sideways and 5 cm forward a frame) in sync
      mode: at least the reference's 51 frames tracked (the camera leaves the
-     room at frame 50), ATE within its bound.
+     room at frame 50), ATE within its bound;
+  9. evaluate.py's clean_desk_rgbd: `make_desk(default_rng(7))` along
+     `desk_trajectory(150)` (made relative to its first camera) through
+     `SlamSystem(sensor=RGBD).track_rgbd` at evaluate.py's configuration
+     (the benchmark's with th_depth=40): ATE within evaluate.py's gate, at
+     least the reference's share of frames tracked;
+ 10. evaluate.py's clean_mono: the same desk along `lateral_trajectory(100)`
+     through `SlamSystem(sensor=MONOCULAR).track_monocular` (bf=0): the
+     two-view initialization, then every frame tracked, at least the
+     reference's tracked count less 2, scale-aligned ATE within evaluate.py's
+     gate; kernel 2's motion-model search runs at radius 15.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -100,6 +110,16 @@ DOLLY_ATE_BOUND = 0.035 * 1.05
 KITTI_FRAMES, KITTI_STEP = 60, (0.08, 0.05)
 KITTI_MIN_TRACKED = 51
 KITTI_ATE_BOUND = 2 * 0.01137
+# Phases 9 and 10: evaluate.py's clean desk legs and their gates, BASELINE.md's
+# TUM fr1/desk RGB-D ATE and fr1/xyz monocular ATE (scale-aligned) x 1.05.
+# The reference on the same frames (`tests/torch_reference_orbit.py --desk`,
+# JAX on the CPU of an H100 machine): clean_desk_rgbd 150/150 tracked, 10
+# keyframes, ATE 0.007186 m; clean_mono 98/100 (the two-view initialization
+# on frame 2, every later frame tracked), 14 keyframes, ATE 0.003705 m
+# scale-aligned. Their tracked counts are the port's floors.
+DESK_FRAMES, MONO_FRAMES = 150, 100
+DESK_ATE_BOUND, MONO_ATE_BOUND = 0.016 * 1.05, 0.009 * 1.05
+DESK_REF_TRACKED, MONO_REF_TRACKED = 150, 98
 
 
 def log(*a):
@@ -208,13 +228,13 @@ def check_fast(kt, img, noise, cfg, ocfg, floor_ms, label=""):
 
 
 def check_match(kt, dev, rng, floor_ms):
-    """Kernel 2, both forms, exact, at the eight search shapes of the paths."""
+    """Kernel 2, both forms, exact, at the nine search shapes of the paths."""
     import torch
     from orb_slam2v2_1_tpu_torch.ops import matching
 
     shapes = []
-    for name, (b, q, n), frame, (max_dist, ratio) in kt.SEARCH_SHAPES:
-        qf, r, tf = kt.search_inputs(rng, dev, b, q, n, *frame)
+    for name, (b, q, n), frame, (max_dist, ratio), radius in kt.SEARCH_SHAPES:
+        qf, r, tf = kt.search_inputs(rng, dev, b, q, n, *frame, radius)
         idx, best, second = matching.masked_best_two(*qf, r, *tf)
         ridx, rbest, rsecond = matching.masked_best_two_plain(*qf, r, *tf)
         got = matching.match_projection(*qf, *tf, r, max_dist=max_dist, nn_ratio=ratio)
@@ -329,15 +349,15 @@ def run_loop_path(imgs, deps, gt, cfg, dev, card):
     return rec, launches, poses, ok
 
 
-def ate_of(slam, gt_Tcw):
-    """The repository's ATE (`utils.trajectory.ate_rmse`, rigid, no scale)
-    of a SlamSystem's trajectory, resolved with its final keyframe poses,
-    against ground-truth Tcw keyed by timestamp."""
+def ate_of(slam, gt_Tcw, align_scale=False):
+    """The repository's ATE (`utils.trajectory.ate_rmse`, rigid unless
+    `align_scale`) of a SlamSystem's trajectory, resolved with its final
+    keyframe poses, against ground-truth Tcw keyed by timestamp."""
     import numpy as np
     from orb_slam2v2_1_tpu_torch.utils.trajectory import ate_rmse
 
     est = slam.trajectory.absolute_poses(slam.map.kf_pose.cpu().numpy())
-    return ate_rmse(est, {t: np.linalg.inv(T) for t, T in gt_Tcw.items()}, align_scale=False)
+    return ate_rmse(est, {t: np.linalg.inv(T) for t, T in gt_Tcw.items()}, align_scale=align_scale)
 
 
 def online_record(slam, outs, wall, launches, syncs, ate, card, **extra):
@@ -491,6 +511,45 @@ def run_stereo(name, cfg, n, step, ate_bound, min_tracked, card, cpu_check=False
     return rec, launches
 
 
+def run_desk(name, cfg, sensor, poses, ate_bound, card):
+    """Phases 9 and 10: an evaluate.py desk leg through SlamSystem on the
+    card, counted as evaluate.py's run_sequence counts it."""
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch.utils import synthetic
+
+    mono = sensor == Sensor.MONOCULAR
+    imgs, deps, gt = synthetic.desk_frames(cfg, poses)  # no device given: the card
+    slam = SlamSystem(config=cfg, sensor=sensor)
+    if mono:
+        outs, _, wall, launches, syncs = drive(slam, [(img, None) for img in imgs],
+                                               lambda a, b, ts: slam.track_monocular(a, ts))
+    else:
+        outs, _, wall, launches, syncs = drive(slam, list(zip(imgs, deps)), slam.track_rgbd)
+    n = len(outs)
+    ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)}, align_scale=mono)
+    entries = slam.trajectory.entries
+    tracked = sum(not e.lost for e in entries)
+    first = next((k for k, e in enumerate(entries) if not e.lost), None)
+    post_init = tracked / max(len(entries) - first, 1) if first is not None else 0.0
+    rec = online_record(slam, outs, wall, launches, syncs, ate, card, ate_bound_m=ate_bound, tracked=tracked,
+                        tracked_share=tracked / n, tracked_share_post_init=post_init,
+                        first_pose_frame=next((j for j, o in enumerate(outs) if o is not None), None),
+                        scale_aligned=mono)
+    log(f"{name}: {tracked}/{n} tracked (post-init share {post_init:.3f}, first pose at frame "
+        f"{rec['first_pose_frame']}), {slam.n_kf_host} keyframes, {slam.n_relocalized} relocalizations, "
+        f"{slam.n_resets} resets, {rec['map_points']} points, ATE {ate:.5f} m{' scale-aligned' if mono else ''} "
+        f"(bound {ate_bound:.5f}), track ms p50 {rec['track_ms_p50']:.1f} p90 {rec['track_ms_p90']:.1f}, "
+        f"{rec['fps']:.2f} frames/s, host syncs {syncs / n:.1f}/frame, launches {launches}, {card}")
+    if not ate <= ate_bound:
+        raise AssertionError(f"{name}: ATE {ate:.5f} m > {ate_bound:.5f} m")
+    if launches["fast_score_nms"] != n:
+        raise AssertionError(f"{name}: fast_score_nms {launches['fast_score_nms']} launches for {n} frames")
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched by the {name} path")
+    return rec, launches
+
+
 def main():
     import numpy as np
     import torch
@@ -601,6 +660,22 @@ def main():
             if count <= 0:
                 raise AssertionError(f"kernel {kernel} was not launched by the {name} path")
 
+    # --- evaluate.py's clean desk legs: RGB-D and monocular ---
+    import dataclasses
+
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
+
+    ecfg = config.SlamConfig(**kt.EVAL)
+    desk_rec, desk_launches = run_desk("clean_desk_rgbd", ecfg, Sensor.RGBD, synthetic.desk_trajectory(DESK_FRAMES),
+                                       DESK_ATE_BOUND, card)
+    if desk_rec["tracked"] < DESK_REF_TRACKED:
+        raise AssertionError(f"clean_desk_rgbd: tracked {desk_rec['tracked']} < the reference's {DESK_REF_TRACKED}")
+    mono_rec, mono_launches = run_desk("clean_mono", dataclasses.replace(ecfg, bf=0.0), Sensor.MONOCULAR,
+                                       synthetic.lateral_trajectory(MONO_FRAMES), MONO_ATE_BOUND, card)
+    if mono_rec["tracked_share_post_init"] < 1.0 or mono_rec["tracked"] < MONO_REF_TRACKED - 2:
+        raise AssertionError(f"clean_mono: tracked {mono_rec['tracked']} (post-init share "
+                             f"{mono_rec['tracked_share_post_init']:.3f}), the reference {MONO_REF_TRACKED}")
+
     if out_dir:
         profile(offline, imgs, deps, cfg, out_dir)
         profile_loop(all_imgs, all_deps, cfg, dev, out_dir)
@@ -618,7 +693,8 @@ def main():
                 "replaces": f"orb_slam2v2_1_tpu/ops/pallas_kernels.py:{line}", "launches": loop_launches[name],
                 "launches_by_path": {"rgbd_96_frames": launches[name], "loop_321_frames": loop_launches[name],
                                      "online_rgbd": online_launches[name], "stereo_dolly": dolly_launches[name],
-                                     "stereo_kitti": kitti_launches[name]},
+                                     "stereo_kitti": kitti_launches[name], "clean_desk_rgbd": desk_launches[name],
+                                     "clean_mono": mono_launches[name]},
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": None,
                 "wrapper_ms": res["wrapper_ms"], "empty_launch_ms": floor_ms, "shapes": res["shapes"]}
@@ -634,6 +710,8 @@ def main():
         "online_rgbd": online_rec,
         "stereo_dolly": dolly_rec,
         "stereo_kitti": kitti_rec,
+        "clean_desk_rgbd": desk_rec,
+        "clean_mono": mono_rec,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

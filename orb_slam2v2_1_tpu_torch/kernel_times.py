@@ -35,24 +35,32 @@ import sys
 BENCH = dict(fx=550.0, fy=550.0, cx=320.0, cy=240.0, width=640, height=480, n_features=1000,
              max_keyframes=128, max_map_points=16384, fps=10.0, bf=44.0, th_depth=100.0)
 ORBIT_TOTAL = 321
+# evaluate.py's configuration of the desk sequences (clean_desk_rgbd; bf=0 for
+# clean_mono): the benchmark's, with th_depth=40.
+EVAL = dict(BENCH, th_depth=40.0)
 # The widest configuration the repository runs: bench.py's KITTI-geometry
 # stereo leg (1241x376, 2000 features).
 KITTI = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241, height=376, n_features=2000,
              max_keyframes=64, max_map_points=16384, fps=10.0, bf=386.14, th_depth=35.0)
 # (name, (batch, queries, targets), (frame width, frame height), (max_dist,
-# nn_ratio)) of the callers of match_projection: motion model, local map, and
-# the batched fuse of a keyframe insertion; then loop closing's searches: one
-# Sim3 candidate's projection search, and the loop fusion at its smallest
-# buckets (16 keyframes x 4096 loop-side points); then the KITTI geometry's
-# (2000 keypoints a frame) motion model, local map and fuse.
+# nn_ratio), radius) of the callers of match_projection: motion model, local
+# map, and the batched fuse of a keyframe insertion; then loop closing's
+# searches: one Sim3 candidate's projection search, and the loop fusion at
+# its smallest buckets (16 keyframes x 4096 loop-side points); then the KITTI
+# geometry's (2000 keypoints a frame) motion model, local map and fuse; then
+# the monocular motion model, whose window is 15 px x the query's level scale
+# (7 px for the depth sensors). A radius of None draws each query's radius
+# uniformly from 5-60 px.
 VGA = (640, 480)
 KITTI_FRAME = (KITTI["width"], KITTI["height"])
-SEARCH_SHAPES = (("motion", (1, 1000, 1000), VGA, (100, 0.9)), ("local_map", (1, 4096, 1000), VGA, (100, 0.8)),
-                 ("fuse", (20, 1000, 1000), VGA, (50, 1.0)), ("sim3", (1, 1000, 1000), VGA, (100, 1.0)),
-                 ("loop_fuse", (16, 4096, 1000), VGA, (50, 1.0)),
-                 ("kitti_motion", (1, 2000, 2000), KITTI_FRAME, (100, 0.9)),
-                 ("kitti_local_map", (1, 4096, 2000), KITTI_FRAME, (100, 0.8)),
-                 ("kitti_fuse", (20, 2000, 2000), KITTI_FRAME, (50, 1.0)))
+SEARCH_SHAPES = (("motion", (1, 1000, 1000), VGA, (100, 0.9), None),
+                 ("local_map", (1, 4096, 1000), VGA, (100, 0.8), None),
+                 ("fuse", (20, 1000, 1000), VGA, (50, 1.0), None), ("sim3", (1, 1000, 1000), VGA, (100, 1.0), None),
+                 ("loop_fuse", (16, 4096, 1000), VGA, (50, 1.0), None),
+                 ("kitti_motion", (1, 2000, 2000), KITTI_FRAME, (100, 0.9), None),
+                 ("kitti_local_map", (1, 4096, 2000), KITTI_FRAME, (100, 0.8), None),
+                 ("kitti_fuse", (20, 2000, 2000), KITTI_FRAME, (50, 1.0), None),
+                 ("mono_motion", (1, 1000, 1000), VGA, (100, 0.9), 15.0))
 
 
 def card_line() -> str:
@@ -128,10 +136,11 @@ def measure(fn) -> dict:
     return {"graph_us": graph_us(fn), "busy_us": busy, "kernels": n_kernels, "wrapper_us": wrapper_us(fn)}
 
 
-def search_inputs(rng, dev, b, q, n, width, height):
+def search_inputs(rng, dev, b, q, n, width, height, radius=None):
     """Queries, radius and targets of one search shape, from `rng`: random
     descriptors with duplicates (ties of the best distance), positions
-    uniform over a width x height frame, 10% invalid."""
+    uniform over a width x height frame, 10% invalid; each query's radius
+    is `radius` px x 1.2 ** its level, or uniform in 5-60 px if None."""
     import numpy as np
     import torch
     from orb_slam2v2_1_tpu_torch.ops import hamming
@@ -146,8 +155,10 @@ def search_inputs(rng, dev, b, q, n, width, height):
                 (words, xy.astype(np.float32), lvl.astype(np.int32), valid)]
 
     qf, tf = feats(q), feats(n)
-    r = torch.from_numpy(rng.uniform(5, 60, (b, q)).astype(np.float32)).to(dev)
-    return qf, r, tf
+    r = rng.uniform(5, 60, (b, q)).astype(np.float32)
+    if radius is not None:
+        r = (radius * 1.2 ** qf[2].cpu().numpy()).astype(np.float32)
+    return qf, torch.from_numpy(r).to(dev), tf
 
 
 def fast_stage(levels, counts, ocfg):
@@ -211,8 +222,8 @@ def main() -> int:
             min_threshold=ocfg.fast_min_threshold)
     cases["FAST stage of one frame"] = lambda: fast_stage(levels, counts, ocfg)
     rng = np.random.default_rng(0)
-    for name, (b, q, n), frame, (max_dist, ratio) in SEARCH_SHAPES:
-        qf, r, tf = search_inputs(rng, dev, b, q, n, *frame)
+    for name, (b, q, n), frame, (max_dist, ratio), radius in SEARCH_SHAPES:
+        qf, r, tf = search_inputs(rng, dev, b, q, n, *frame, radius)
         cases[f"masked_best_two best-two {name} {b}x{q}x{n}"] = (
             lambda qf=qf, r=r, tf=tf: matching.masked_best_two(*qf, r, *tf))
         cases[f"match_projection {name} {b}x{q}x{n}"] = (

@@ -1,10 +1,11 @@
 """Per-frame program: frame construction, tracking, keyframe insertion.
 
-Port of the JAX package's `models/frontend.py` for RGB-D and stereo frames
-(the async split pipeline is not ported yet). The reference fuses a frame
-into one device program with `lax.cond` branches; here the two tracking
-fallbacks (wide-window retry, reference-keyframe search) are host branches,
-each decided by one counted device read (`sync.host`).
+Port of the JAX package's `models/frontend.py` for RGB-D, stereo and
+monocular frames (the async split pipeline is not ported yet). The
+reference fuses a frame into one device program with `lax.cond` branches;
+here the two tracking fallbacks (wide-window retry, reference-keyframe
+search) are host branches, each decided by one counted device read
+(`sync.host`).
 """
 
 from __future__ import annotations
@@ -32,21 +33,26 @@ class FrameResult(NamedTuple):
 
 def _build_frame(img, depth, K, dist, bf, config: orb.OrbConfig,
                  frame_id, width: int, height: int) -> FrameData:
-    """Frame construction (Frame ctor analog) from an image and its depth."""
+    """Frame construction (Frame ctor analog) from an image and its depth;
+    `depth=None` (monocular) leaves every keypoint's depth and ur at -1."""
     feats = orb.extract_orb(img, config)
     xy_u = undistort.undistort_points(feats.xy, K, dist)
     n = feats.xy.shape[0]
     dev = img.device
-    xi = torch.clamp(feats.xy[:, 0].to(torch.int32), 1, width - 2).long()
-    yi = torch.clamp(feats.xy[:, 1].to(torch.int32), 1, height - 2).long()
-    # 3x3 depth-edge filter: reject depth at discontinuities.
-    patch = torch.stack([depth[yi + dy, xi + dx] for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dim=-1)
-    d = depth[yi, xi]
-    pmin = torch.amin(patch, -1)
-    spread = torch.amax(patch, -1) - pmin
-    edge_ok = (pmin > 0) & (spread < 0.1 * torch.clamp(d, min=1e-6))
-    d = torch.where(edge_ok, d, -1.0)
-    ur = torch.where(d > 0, xy_u[:, 0] - bf / torch.clamp(d, min=1e-6), -1.0)
+    if depth is None:
+        d = torch.full((n,), -1.0, dtype=torch.float32, device=dev)
+        ur = d.clone()
+    else:
+        xi = torch.clamp(feats.xy[:, 0].to(torch.int32), 1, width - 2).long()
+        yi = torch.clamp(feats.xy[:, 1].to(torch.int32), 1, height - 2).long()
+        # 3x3 depth-edge filter: reject depth at discontinuities.
+        patch = torch.stack([depth[yi + dy, xi + dx] for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dim=-1)
+        d = depth[yi, xi]
+        pmin = torch.amin(patch, -1)
+        spread = torch.amax(patch, -1) - pmin
+        edge_ok = (pmin > 0) & (spread < 0.1 * torch.clamp(d, min=1e-6))
+        d = torch.where(edge_ok, d, -1.0)
+        ur = torch.where(d > 0, xy_u[:, 0] - bf / torch.clamp(d, min=1e-6), -1.0)
     return FrameData(
         xy=xy_u, level=feats.level, angle=feats.angle, desc=feats.desc,
         desc_pm1=feats.desc_pm1, kp_valid=feats.valid, ur=ur, depth=d,
@@ -85,17 +91,17 @@ def build_frame_stereo(img_left, img_right, K, dist, bf, frame_id, config: orb.O
 def process_frame_impl(state: MapState, img, depth, last: FrameData, velocity,
                        have_velocity: bool, ref_kf, K, dist, bf, depth_limit: float,
                        frame_id, config: orb.OrbConfig, width: int, height: int,
-                       voc=None, vo_points: bool = False) -> FrameResult:
+                       voc=None, vo_points: bool = False, mono: bool = False) -> FrameResult:
     cur = _build_frame(img, depth, K, dist, bf, config, frame_id, width, height)
     return track_frame_impl(state, cur, last, velocity, have_velocity, ref_kf, K, bf,
-                            depth_limit, width, height, voc, vo_points)
+                            depth_limit, width, height, voc, vo_points, mono)
 
 
 def track_frame_impl(state: MapState, cur: FrameData, last: FrameData, velocity,
                      have_velocity: bool, ref_kf, K, bf, depth_limit: float, width: int,
-                     height: int, voc=None, vo_points: bool = False) -> FrameResult:
+                     height: int, voc=None, vo_points: bool = False, mono: bool = False) -> FrameResult:
     # --- stage 1: motion model (with wide retry) or reference-KF fallback ---
-    r1 = 7.0  # the reference's RGB-D search radius (15 for mono)
+    r1 = 15.0 if mono else 7.0  # the motion model's search radius in pixels
     T_pred = lie.orthonormalize(velocity @ last.pose)
     use_fallback = True
     if have_velocity:

@@ -70,8 +70,11 @@ def _gauss_kernel(size: int, sigma: float, device=None) -> torch.Tensor:
 def gather_windows(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(K, h, w) windows of img (H, W) at start rows y0 and columns x0 (K,),
     as `lax.dynamic_slice` cuts them: a negative start counts from the end,
-    then the start is clamped so the whole window fits."""
+    then the start is clamped so the whole window fits. A window larger than
+    the image raises TypeError, as `lax.dynamic_slice` does."""
     H, W = img.shape
+    if h > H or w > W:
+        raise TypeError(f"gather_windows: a {h}x{w} window is larger than the {H}x{W} image")
 
     def start(s, size, n):
         s = s.long()

@@ -1,8 +1,7 @@
 """Feature matching: masked Hamming searches + rotation consistency.
 
-Port of the JAX package's `ops/matching.py` (all but `match_mutual`, which
-belongs to the monocular initializer). Every function takes optional leading
-batch dimensions, which replace the reference's `vmap`s.
+Port of the JAX package's `ops/matching.py`. Every function takes optional
+leading batch dimensions, which replace the reference's `vmap`s.
 
 Kernel 2 (`csrc/masked_best_two.cu`) has two entry points here, and each
 launches the kernel for CUDA tensors and runs its plain version for CPU
@@ -111,6 +110,19 @@ def match_nn(q_desc: torch.Tensor, t_desc: torch.Tensor, mask: torch.Tensor,
     D = hamming.distance_matrix(q_desc, t_desc)
     best_idx, best, second = best_two(D, mask)
     return Matches(idx=best_idx, dist=best, ok=_ratio_ok(best, second, max_dist, nn_ratio))
+
+
+def match_mutual(a_desc: torch.Tensor, b_desc: torch.Tensor, mask: torch.Tensor,
+                 max_dist: int = TH_LOW, nn_ratio: float = 0.9) -> Matches:
+    """Mutual-best masked nearest neighbour a -> b on +-1 descriptors, with
+    the distance and ratio tests (`SearchForInitialization`,
+    src/ORBmatcher.cc:405-520)."""
+    D = hamming.distance_matrix(a_desc, b_desc)
+    a_best_idx, a_best, a_second = best_two(D, mask)
+    b_best_idx = torch.argmin(torch.where(mask, D, torch.full_like(D, BIG)), dim=-2)
+    q = torch.arange(a_desc.shape[-2], device=a_desc.device)
+    mutual = torch.gather(b_best_idx, -1, a_best_idx) == q
+    return Matches(idx=a_best_idx, dist=a_best, ok=_ratio_ok(a_best, a_second, max_dist, nn_ratio) & mutual)
 
 
 def masked_best_two_plain(q_words, q_xy, q_level, q_valid, radius,

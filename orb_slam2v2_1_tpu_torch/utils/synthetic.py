@@ -7,7 +7,9 @@ PyTorch on the scene's device. `orbit_frames` reproduces the headline
 benchmark's sequence (bench.py `orbit_frames`): a two-revolution in-place
 yaw orbit in the room's first six planes. `stereo_dolly_frames` renders the
 rectified pairs of a sideways-and-forward dolly through the whole room
-(evaluate.py's `stereo_dolly`, bench.py's KITTI leg). The desk and
+(evaluate.py's `stereo_dolly`, bench.py's KITTI leg). `make_desk`,
+`desk_trajectory` and `lateral_trajectory` give evaluate.py's desk sequences
+(`clean_desk_rgbd`, `clean_mono`); `desk_frames` renders them. The
 adversarial scenes and the photometric degradations are not ported yet.
 """
 
@@ -67,6 +69,85 @@ def make_room(rng: np.random.Generator, tex_size: int = 512, device=None) -> Pla
     tex = np.stack([blob_texture(rng, tex_size) for _ in planes])
     o, u, v = (np.asarray([p[i] for p in planes], np.float32) for i in range(3))
     return PlaneScene(*(torch.from_numpy(a).to(device) for a in (o, u, v, tex)))
+
+
+def make_desk(rng: np.random.Generator, tex_size: int = 512, device=None) -> PlaneScene:
+    """Desk-like close-range scene (the TUM fr1 benchmark character): a wall
+    at 3.5 m, a tilted desk plane, and a clutter of boxes at 1.3-2.8 m that
+    fill most of the view from the origin; on `device` (None: the card)."""
+    device = device_mod.resolve(device)
+    planes = [
+        ([-3.0, -2.0, 3.5], [6.0, 0.0, 0.0], [0.0, 4.0, 0.0]),  # back wall
+        ([-3.0, 1.0, 0.5], [6.0, 0.0, 0.0], [0.0, 0.5, 3.0]),  # desk (tilted top)
+    ]
+    boxes = [
+        (-1.8, -1.0, 1.6, 0.8, 1.0),
+        (-0.6, -0.3, 1.4, 0.7, 0.9),
+        (0.5, -1.2, 1.9, 0.9, 1.1),
+        (1.4, 0.0, 1.5, 0.8, 0.8),
+        (-2.4, 0.2, 2.3, 1.0, 0.8),
+        (0.0, 0.5, 2.1, 1.2, 0.6),
+        (-1.0, -1.8, 2.6, 1.3, 1.0),
+        (1.8, -0.9, 2.8, 1.1, 1.2),
+    ]
+    for (bx, by, bz, w, h) in boxes:
+        planes.append(([bx, by, bz], [w, 0.0, 0.0], [0.0, h, 0.0]))
+        planes.append(([bx + w, by, bz], [0.0, 0.0, 0.6], [0.0, h, 0.0]))
+    tex = np.stack([blob_texture(rng, tex_size) for _ in planes])
+    o, u, v = (np.asarray([p[i] for p in planes], np.float32) for i in range(3))
+    return PlaneScene(*(torch.from_numpy(a).to(device) for a in (o, u, v, tex)))
+
+
+def _tcw_of(xi: np.ndarray) -> np.ndarray:
+    """World->camera pose of the camera whose Twc = se3_exp(xi)."""
+    Twc = lie.se3_exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
+    return np.linalg.inv(Twc).astype(np.float32)
+
+
+def desk_trajectory(n_frames: int, extent: float = 0.7) -> list[np.ndarray]:
+    """fr1/xyz-like sweep: lateral and vertical translation with a gentle yaw
+    that keeps the desk centred. Returns a list of Tcw (world = first
+    camera)."""
+    poses = []
+    look_z = 2.2  # fixation depth
+    for i in range(n_frames):
+        s = i / max(n_frames - 1, 1)
+        x = extent * np.sin(2 * np.pi * s)
+        y = 0.25 * np.sin(4 * np.pi * s)
+        z = 0.15 * np.sin(2 * np.pi * s + 1.0)
+        yaw = -np.arctan2(x, look_z)
+        poses.append(_tcw_of(np.array([x, y, z, 0.0, yaw, 0.0], np.float32)))
+    return poses
+
+
+def lateral_trajectory(n_frames: int, extent: float = 1.5) -> list[np.ndarray]:
+    """Smooth lateral sweep with a slight yaw, the parallax a monocular
+    initialization needs. Returns a list of Tcw (world = first camera)."""
+    poses = []
+    for i in range(n_frames):
+        s = i / max(n_frames - 1, 1)
+        x = extent * np.sin(2 * np.pi * s * 0.5)
+        yaw = 0.1 * np.sin(2 * np.pi * s)
+        poses.append(_tcw_of(np.array([x, 0.1 * np.sin(4 * np.pi * s), 0.3 * s, 0.0, yaw, 0.0], np.float32)))
+    return poses
+
+
+def desk_frames(cfg, poses, device=None):
+    """evaluate.py's clean desk sequence: `make_desk(default_rng(7))` seen
+    from `poses` (Tcw), each made relative to the first as evaluate.py's
+    `norm` does, rendered on `device` (None: the card). Returns (images
+    (n,H,W), depths (n,H,W)) tensors and the relative Tcw (n,4,4) float64
+    numpy, evaluate.py's ground truth."""
+    device = device_mod.resolve(device)
+    desk = make_desk(np.random.default_rng(7), device=device)
+    K = torch.tensor(cfg.K, dtype=torch.float32, device=device)
+    gt = np.stack([p @ np.linalg.inv(poses[0]) for p in poses])
+    imgs, deps = [], []
+    for Tcw in gt:
+        img, depth = render(desk, torch.from_numpy(Tcw.astype(np.float32)).to(device), K, cfg.width, cfg.height)
+        imgs.append(img)
+        deps.append(depth)
+    return torch.stack(imgs), torch.stack(deps), gt
 
 
 def render(scene: PlaneScene, Tcw: torch.Tensor, K: torch.Tensor, width: int, height: int):

@@ -119,8 +119,10 @@ def _entry_points():
     from orb_slam2v2_1_tpu_torch.models import map_state, offline, system, tracking
     from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
+    # Three levels: at 96x80 the eighth would be smaller than the 39-px ORB
+    # patch, which raises in both packages.
     cfg = config.SlamConfig(fx=60.0, fy=60.0, cx=48.0, cy=40.0, width=96, height=80, n_features=100,
-                            max_keyframes=4, max_map_points=256, bf=10.0)
+                            n_levels=3, max_keyframes=4, max_map_points=256, bf=10.0)
     rng = np.random.default_rng(3)
     state_np = map_state.to_numpy(map_state.empty_map(2, 16, 8, device="cpu"))
     frame_np = {name: np.zeros((4, 8) if name == "desc" else (4, 2) if name == "xy" else (4,),
@@ -133,11 +135,14 @@ def _entry_points():
         # blank frames then fail in map initialization or run through.
         return offline.track_sequence_rgbd(frames, frames + 1.0, cfg, device=device)
 
-    def slam(device):
-        return system.SlamSystem(config=cfg, sensor=system.Sensor.RGBD, device=device).map.kf_pose.device
+    def slam(device, sensor=system.Sensor.RGBD):
+        return system.SlamSystem(config=cfg, sensor=sensor, device=device).map.kf_pose.device
 
     return {
         "SlamSystem": slam,
+        "SlamSystem_mono": lambda device: slam(device, system.Sensor.MONOCULAR),
+        "make_desk": lambda device: synthetic.make_desk(rng, tex_size=16, device=device).tex.device,
+        "desk_frames": lambda device: synthetic.desk_frames(cfg, synthetic.lateral_trajectory(2), device=device)[0].device,
         "make_room": lambda device: synthetic.make_room(rng, tex_size=16, device=device).tex.device,
         "orbit_frames": lambda device: synthetic.orbit_frames(cfg, 1, device=device)[0].device,
         "empty_map": lambda device: map_state.empty_map(2, 16, 8, device=device).kf_pose.device,
@@ -152,7 +157,8 @@ class TestDeviceDefault:
     given and no card they raise; they do not carry on on the CPU."""
 
     @pytest.mark.parametrize("name", ["make_room", "orbit_frames", "empty_map", "from_numpy",
-                                      "frame_from_numpy", "track_sequence_rgbd", "SlamSystem"])
+                                      "frame_from_numpy", "track_sequence_rgbd", "SlamSystem",
+                                      "SlamSystem_mono", "make_desk", "desk_frames"])
     def test_raises_without_card_and_runs_on_cpu(self, monkeypatch, name):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         call = _entry_points()[name]
@@ -172,7 +178,7 @@ class TestDeviceDefault:
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         cfg = config.SlamConfig(fx=60.0, fy=60.0, cx=48.0, cy=40.0, width=96, height=80, n_features=100,
-                                max_keyframes=4, max_map_points=256, bf=10.0)
+                                n_levels=3, max_keyframes=4, max_map_points=256, bf=10.0)
         frames = torch.zeros((2, 80, 96))
         _, _, state = offline.track_sequence_rgbd(frames, frames + 1.0, cfg)
         assert state.kf_pose.device.type == "cpu"

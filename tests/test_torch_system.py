@@ -282,7 +282,7 @@ def test_trajectory_and_ate_parity(tmp_path, rng):
 @pytest.mark.parametrize("kwargs, match", [
     (dict(sensor=system.Sensor.RGBD, async_mapping=True), "async_mapping"),
     (dict(sensor=system.Sensor.RGBD, async_mapping=True, pipelined=True), "async_mapping"),
-    (dict(sensor=system.Sensor.MONOCULAR), "MONOCULAR"),
+    (dict(sensor=system.Sensor.MONOCULAR, async_mapping=True), "async_mapping"),
     (dict(sensor=system.Sensor.STEREO, mesh=["cuda:0", "cuda:1"]), "mesh"),
 ])
 def test_unported_modes_raise(kwargs, match):

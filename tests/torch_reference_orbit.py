@@ -6,6 +6,7 @@
     python3 tests/torch_reference_orbit.py --sensitivity
     python3 tests/torch_reference_orbit.py --online [--stereo] [--out FILE]
     python3 tests/torch_reference_orbit.py --stereo [--out FILE]
+    python3 tests/torch_reference_orbit.py --desk [--out FILE]
 
 The number that `chip_smoke.py` holds the PyTorch port's loop path to: the
 same orbit (the room, seed and poses of `bench.orbit_frames`), the same
@@ -30,6 +31,13 @@ phases 6-8 (its ONLINE_SEQUENCE, the stereo dolly of `evaluate.py` and the
 KITTI geometry of `bench.py`): tracked frames, keyframes, relocalizations and
 the ATE (`utils.trajectory.ate_rmse` without scale). Twice these ATEs are
 `chip_smoke.py`'s bounds for the port.
+
+`--desk` runs the reference's `SlamSystem` on the frames of `chip_smoke.py`'s
+phases 9 and 10, `evaluate.py`'s clean_desk_rgbd and clean_mono (rendered by
+the port's renderer on the CPU), counted as `evaluate.py run_sequence`
+counts them: tracked frames, the post-initialization tracked share,
+keyframes, resets, and the ATE (rigid for RGB-D, scale-aligned for mono).
+The tracked counts are the floors of `chip_smoke.py`'s gates there.
 """
 
 import json
@@ -237,17 +245,56 @@ def stereo():
     return out
 
 
+def desk():
+    """chip_smoke.py phases 9 and 10 on the reference."""
+    import chip_smoke
+    from orb_slam2v2_1_tpu.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu.utils.trajectory import ate_rmse
+    from orb_slam2v2_1_tpu_torch.kernel_times import EVAL
+    from orb_slam2v2_1_tpu_torch.utils import config as tconfig
+    from orb_slam2v2_1_tpu_torch.utils import synthetic as tsyn
+
+    out = []
+    for name, sensor, poses, bf in (
+            ("clean_desk_rgbd", Sensor.RGBD, tsyn.desk_trajectory(chip_smoke.DESK_FRAMES), EVAL["bf"]),
+            ("clean_mono", Sensor.MONOCULAR, tsyn.lateral_trajectory(chip_smoke.MONO_FRAMES), 0.0)):
+        kw = dict(EVAL, bf=bf)
+        imgs, deps, gt = tsyn.desk_frames(tconfig.SlamConfig(**kw), poses, device="cpu")
+        imgs, deps = imgs.numpy(), deps.numpy()
+        slam = SlamSystem(config=SlamConfig(**kw), sensor=sensor)
+        t0 = time.time()
+        for i in range(len(imgs)):
+            if sensor == Sensor.MONOCULAR:
+                slam.track_monocular(imgs[i], i * 0.1)
+            else:
+                slam.track_rgbd(imgs[i], deps[i], i * 0.1)
+        wall = time.time() - t0
+        entries = slam.trajectory.entries
+        tracked = sum(not e.lost for e in entries)
+        first = next((k for k, e in enumerate(entries) if not e.lost), None)
+        est = slam.trajectory.absolute_poses(np.asarray(slam.map.kf_pose))
+        ate = ate_rmse(est, {i * 0.1: np.linalg.inv(T) for i, T in enumerate(gt)},
+                       align_scale=sensor == Sensor.MONOCULAR)
+        out.append({"path": name, "package": "orb_slam2v2_1_tpu (JAX, CPU)", "frames": len(imgs), "tracked": tracked,
+                    "tracked_share_post_init": tracked / max(len(entries) - first, 1) if first is not None else 0.0,
+                    "first_tracked_time": None if first is None else entries[first].timestamp,
+                    "keyframes": slam.n_kf_host, "resets": slam.n_resets, "loops_closed": slam.n_loops_closed,
+                    "ate_m": ate, "scale_aligned": sensor == Sensor.MONOCULAR, "wall_s": wall})
+    return out
+
+
 def main():
     args = sys.argv[1:]
     if args == ["--compare-small"]:
         return compare_small()
     if args == ["--sensitivity"]:
         return sensitivity()
-    if args and args[0] in ("--online", "--stereo"):
-        if not set(args) - {"--online", "--stereo", "--out"} <= ({args[-1]} if "--out" in args else set()):
+    if args and args[0] in ("--online", "--stereo", "--desk"):
+        if not set(args) - {"--online", "--stereo", "--desk", "--out"} <= ({args[-1]} if "--out" in args else set()):
             raise SystemExit(__doc__)
         out = args[args.index("--out") + 1] if "--out" in args else None
-        records = ([online()] if "--online" in args else []) + (stereo() if "--stereo" in args else [])
+        records = (([online()] if "--online" in args else []) + (stereo() if "--stereo" in args else [])
+                   + (desk() if "--desk" in args else []))
         for record in records:
             print(json.dumps(record, default=str), flush=True)
         if out:
