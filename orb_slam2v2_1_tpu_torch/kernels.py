@@ -32,10 +32,13 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import torch
+
+from . import sync
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
@@ -52,15 +55,28 @@ FAST_MAX_LEVELS = 16
 SEARCH_NO_CANDIDATE = 1 << 20
 
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds
-# one exactly where it launches its kernel.
+# one exactly where it launches its kernel. LAUNCHES_BY_ROLE splits them by
+# the launching thread's role (`sync.role()`: the tracker, the mapping and
+# loop workers, the global-BA worker). Several threads launch, hence the lock.
 LAUNCHES = {"fast_score_nms": 0, "masked_best_two": 0}
+LAUNCHES_BY_ROLE: dict = {k: {} for k in LAUNCHES}
+_COUNT_LOCK = threading.Lock()
 
 _libs: dict = {}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            LAUNCHES_BY_ROLE[k].clear()
+
+
+def _launched(kernel: str) -> None:
+    role = sync.role()
+    with _COUNT_LOCK:
+        LAUNCHES[kernel] += 1
+        LAUNCHES_BY_ROLE[kernel][role] = LAUNCHES_BY_ROLE[kernel].get(role, 0) + 1
 
 
 def _nvcc() -> str:
@@ -178,7 +194,7 @@ def fast_score_nms(img: torch.Tensor) -> torch.Tensor:
     rc = lib.fast_score_nms(img.data_ptr(), out.data_ptr(), h, w, _stream(img.device))
     if rc != 0:
         raise RuntimeError(f"fast_score_nms launch failed: CUDA error {rc}")
-    LAUNCHES["fast_score_nms"] += 1
+    _launched("fast_score_nms")
     return out
 
 
@@ -217,7 +233,7 @@ def fast_cells_pyramid(levels, cell: int, border: int, threshold: float, min_thr
     )
     if rc != 0:
         raise RuntimeError(f"fast_score_nms (cell form) launch failed: CUDA error {rc}")
-    LAUNCHES["fast_score_nms"] += 1
+    _launched("fast_score_nms")
     return best, arg, grids
 
 
@@ -262,7 +278,7 @@ def masked_best_two(q_words, q_xy, q_level, q_valid, radius,
     )
     if rc != 0:
         raise RuntimeError(f"masked_best_two launch failed: CUDA error {rc}")
-    LAUNCHES["masked_best_two"] += 1
+    _launched("masked_best_two")
     return idx, best, second
 
 
@@ -291,5 +307,5 @@ def masked_match(q_words, q_xy, q_level, q_valid, radius, t_words, t_xy, t_level
     )
     if rc != 0:
         raise RuntimeError(f"masked_best_two (match form) launch failed: CUDA error {rc}")
-    LAUNCHES["masked_best_two"] += 1
+    _launched("masked_best_two")
     return idx, dist, ok

@@ -1,8 +1,9 @@
 """Per-frame program: frame construction, tracking, keyframe insertion.
 
 Port of the JAX package's `models/frontend.py` for RGB-D, stereo and
-monocular frames (the async split pipeline is not ported yet). The
-reference fuses a frame into one device program with `lax.cond` branches;
+monocular frames, with the split keyframe pipeline of the async runtime
+(`append_keyframe_only` on the tracker, `mapping_pipeline` on the mapping
+worker). The reference fuses a frame into one device program with `lax.cond` branches;
 here the two tracking fallbacks (wide-window retry, reference-keyframe
 search) are host branches, each decided by one counted device read
 (`sync.host`).
@@ -164,10 +165,49 @@ def insert_keyframe_fused_impl(state: MapState, frame: FrameData, K, bf, depth_l
     LocalMapping::Run body order). Returns (state, kf_id, cost, victim,
     victim_parent, T_redirect)."""
     state, kf_id = _append_keyframe_body(state, frame, K, bf, depth_limit)
+    state = mapping_pre_ba(state, kf_id, K, bf, voc)
+    state, cost = local_mapping.local_bundle_adjustment_impl(state, kf_id, K, bf)
+    state, victim, vparent, T_redirect = mapping_post_ba(state, kf_id)
+    return state, kf_id, cost, victim, vparent, T_redirect
+
+
+# ---------------------------------------------------------------------------
+# Split keyframe pipeline for the async runtime (runtime/pipeline.py):
+# tracking appends the keyframe (cheap, CreateNewKeyFrame analog,
+# src/Tracking.cc:1206-1286) and hands the mapping round to the
+# LocalMapping worker (LocalMapping::Run body, src/LocalMapping.cc:47-120).
+# Every update is out of place: `state` is a snapshot other threads hold.
+# ---------------------------------------------------------------------------
+
+
+def append_keyframe_only(state: MapState, frame: FrameData, K, bf, depth_limit: float):
+    """Append + stereo/depth densification only. Returns (state, kf_id)."""
+    return _append_keyframe_body(state, frame, K, bf, depth_limit)
+
+
+def mapping_pre_ba(state: MapState, kf_id, K, bf, voc=None) -> MapState:
+    """Mapping round up to the local BA: point cull, triangulation, fusion,
+    the window's point statistics."""
     state = local_mapping.cull_map_points(state, kf_id)
     state = local_mapping.create_map_points(state, kf_id, K, bf, voc)
     state = local_mapping.fuse_map_points(state, kf_id, K, bf)
-    state = update_mp_stats_window(state, kf_id)
-    state, cost = local_mapping.local_bundle_adjustment_impl(state, kf_id, K, bf)
+    return update_mp_stats_window(state, kf_id)
+
+
+def mapping_post_ba(state: MapState, kf_id):
+    """Keyframe culling + covisibility refresh after the local BA. Returns
+    (state, victim, victim_parent, T_redirect)."""
     state, victim, vparent, T_redirect = local_mapping.cull_keyframes(state, kf_id)
-    return refresh_covis(state), kf_id, cost, victim, vparent, T_redirect
+    return refresh_covis(state), victim, vparent, T_redirect
+
+
+def mapping_pipeline(state: MapState, kf_id, K, bf, allow_ba: bool = True, voc=None):
+    """Worker-side mapping round on an already appended keyframe: cull,
+    triangulate, fuse, stats and, unless interrupted, local BA, then the
+    keyframe cull. `allow_ba=False` is the mbAbortBA path
+    (src/LocalMapping.cc:126): a newer keyframe is waiting, skip the solve and
+    catch up. Returns (state, victim, victim_parent, T_redirect)."""
+    state = mapping_pre_ba(state, kf_id, K, bf, voc)
+    if allow_ba:
+        state, _ = local_mapping.local_bundle_adjustment_impl(state, kf_id, K, bf)
+    return mapping_post_ba(state, kf_id)

@@ -22,6 +22,7 @@ reference's.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -33,6 +34,7 @@ from ..ops import ba, hamming, lie, matching, pose_graph, sim3solver
 from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from ..ops.topk import scatter_last, set_drop, stable_topk
+from ..runtime.native import NativeFlag
 from . import keyframe_database as kdb
 from .map_state import MapState, _cam_centers, _mark, refresh_covis
 from .tracking import LOG_SCALE, N_LEVELS, SCALE, _level_pow, inv_level_sigma2
@@ -441,24 +443,9 @@ def merge_gba_into_live(live: MapState, snap_kf_seq, snap_kf_valid, snap_mp_firs
     return live._replace(kf_pose=new_poses, mp_pos=mp_pos)
 
 
-class StopFlag:
-    """The GBA stop flag (`mbStopGBA`): `set`, `clear` and truth, safe across
-    threads."""
-
-    def __init__(self):
-        self._event = threading.Event()
-
-    def set(self, value: int = 1) -> None:
-        if value:
-            self._event.set()
-        else:
-            self._event.clear()
-
-    def clear(self) -> None:
-        self._event.clear()
-
-    def __bool__(self) -> bool:
-        return self._event.is_set()
+# The GBA stop flag (`mbStopGBA`): the native runtime's atomic flag, with
+# `set`, `clear` and truth.
+StopFlag = NativeFlag
 
 
 class GlobalBARunner:
@@ -540,8 +527,12 @@ class GlobalBARunner:
         return prob, False
 
     def _run_guarded(self) -> None:
+        sync.set_role("gba")
+        dev = self._snapshot.kf_pose.device
         try:
-            self._run()
+            # A new thread starts on device 0: launch on the snapshot's card.
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                self._run()
         except BaseException as exc:  # handed to the owner by join()
             self._error = exc
 

@@ -1,22 +1,33 @@
 """SLAM system facade: the host-side state machine of the online entry point.
 
-Port of the JAX package's `models/system.py` in its synchronous mode
-(`async_mapping=False, pipelined=False`) for the monocular, RGB-D and stereo
-sensors: the reference `System` + `Tracking` state machine
+Port of the JAX package's `models/system.py` for the monocular, RGB-D and
+stereo sensors: the reference `System` + `Tracking` state machine
 (src/System.cc:38-537, src/Tracking.cc:376-649). Each `track_monocular` /
 `track_rgbd` / `track_stereo` call builds the frame, tracks it
 (`frontend.track_frame_impl`), reads its decision vector, pose and relative
 pose in one counted transfer, and then decides on the host: relocalization
 on loss, the early-loss reset, the localization-mode visual odometry, the
-keyframe policy, keyframe insertion with local mapping, and a loop-closing
-round after each insertion. Before the first keyframe, a depth sensor
-initializes from one frame and a monocular camera from two
+keyframe policy and keyframe insertion. Before the first keyframe, a depth
+sensor initializes from one frame and a monocular camera from two
 (`ops.twoview.initialize_two_view`, seeded by the frame id).
 
-Not ported yet, each raising NotImplementedError: `async_mapping=True` and
-`pipelined=True` (their worker threads), a `mesh` of more than one device,
-the map server (`connect_server`, `fetch_server_map`, `poll_server_push`),
-`save_map` / `load_map` and `warmup`.
+Three modes, as in the reference:
+- sync (`async_mapping=False`): the call inserts the keyframe with its local
+  mapping round, then runs a loop-closing round with the global BA inline;
+- async (`async_mapping=True`): the call only appends the keyframe; local
+  mapping and loop closing run on the native runtime's worker threads
+  (`runtime/pipeline.py`) on snapshots of a versioned `MapBox`, with the
+  global BA detached on a thread of its own (the reference's LocalMapping,
+  LoopClosing and GBA threads, src/System.cc:124-143);
+- pipelined (`pipelined=True`, needs async): while tracking is healthy a
+  frame's decision vector is copied to the host without waiting, and the
+  decision for frame k is taken when its copy has arrived, at most
+  `pipeline_depth` frames later; `track_*` then returns the frame's pose as
+  a tensor on the device.
+
+Not ported yet, each raising NotImplementedError: a `mesh` of more than one
+device and the map server (`connect_server`, `fetch_server_map`,
+`poll_server_push`).
 """
 
 from __future__ import annotations
@@ -26,20 +37,25 @@ import os
 import time as _time
 from collections import deque
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import device as device_mod
-from .. import sync
-from ..ops import lie, orb, twoview
+from .. import kernels, sync
+from ..ops import ba, lie, orb, twoview
 from ..ops import vocab as vocab_ops
+from ..runtime import native
+from ..runtime.pipeline import AsyncMapper, MapBox
+from ..utils import serialization
 from ..utils.config import SlamConfig
 from ..utils.trajectory import Trajectory
 from . import frontend, initialization, local_mapping, relocalization
 from . import keyframe_database as kdb
+from . import loop_closing as lc
 from .loop_closing import LoopCloser
-from .map_state import MapState, covisibility, empty_map
+from .map_state import MapState, covisibility, empty_map, refresh_covis
 from .tracking import FrameData
 
 # The shared vocabulary, read in place from the reference package's data.
@@ -61,15 +77,35 @@ class TrackState(enum.Enum):
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (the port runs SlamSystem in sync mode)")
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+class _Pending(NamedTuple):
+    """A dispatched but undecided frame on the pipelined path."""
+
+    res: frontend.FrameResult  # tensors on the device
+    stats: sync.AsyncRead  # the decision vector's copy to the host
+    timestamp: float
+    frame_id: int
+    ref_kf: int  # the reference keyframe it was tracked against
+    version: int  # the MapBox version it was tracked on
 
 
 @dataclass
 class SlamSystem:
     config: SlamConfig
     sensor: Sensor = Sensor.MONOCULAR
+    # Local mapping and loop closing on worker threads (see the module doc).
     async_mapping: bool = False
+    # Deferred per-frame decisions (needs async_mapping).
     pipelined: bool = False
+    pipeline_depth: int = 4
+    # Pipelining engages only while tracking is healthy: an established map
+    # (>= 5 keyframes) and this many inliers, a margin over the 30 of the
+    # OK test (src/Tracking.cc:1110-1113). The reference decides keyframes
+    # with no lag; a lag of a few frames is taken only where it cannot cost
+    # the track.
+    pipeline_min_inliers: int = 60
     mesh: object = None
     # Where the map and frames live; None means the card (raises without one).
     device: object = None
@@ -90,8 +126,6 @@ class SlamSystem:
     def __post_init__(self):
         if self.pipelined and not self.async_mapping:
             raise ValueError("pipelined=True requires async_mapping=True")
-        if self.async_mapping:
-            raise _not_ported("async_mapping=True")
         if self.mesh == "auto":
             self.mesh = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
         if self.mesh is not None and len(self.mesh) > 1:
@@ -114,22 +148,46 @@ class SlamSystem:
         self._velocity_dev = torch.eye(4, dtype=torch.float32, device=dev)
         self._have_velocity = False
         self._init_recognition()
+        self._box = None
+        self._mapper = None
+        self._map_version = 0
+        self._loops_seen = 0
         self._odom_Tcw = None
         self._last_Tcw = None
+        # Keyframes the mapping worker erased, queued for the tracker's
+        # trajectory bookkeeping (list.append and pop are atomic).
+        self._pending_redirects = []
         self._vo_mode = False  # mbVO analog (src/Tracking.cc:434-501)
         self.n_resets = 0
         # Relocalizations that succeeded (a frame tracked after loss through
         # the reference keyframe is not one).
         self.n_relocalized = 0
         self._pose_listeners = []
-        # Rolling per-stage latency (ms), see stats(); in sync mode mapping
-        # and loop closing run inside the track call.
+        # Pipelined tracking.
+        self._pending: deque[_Pending] = deque()
+        self._odom_dev = None  # the odometry chain on the device
+        self._odom_skip_next = False
+        self._pipeline_healthy = False
+        # EMA of the per-frame decay of the tracked-close count, to anticipate
+        # the keyframe trigger by the decision lag (_need_new_keyframe_stats).
+        self._close_decay = 0.0
+        self._prev_close = None
+        # Transient-dip grace budget: frames already in flight when a
+        # keyframe trigger lands can dip below the 30-inlier OK bar before
+        # the new keyframe reaches them; up to 2 consecutive such frames keep
+        # their stage-2 pose instead of declaring loss (their >= 15 inliers
+        # still pin it).
+        self._grace_left = 0
+        # Rolling per-stage latency (ms), see stats(); "map" and "loop" are
+        # timed inside the call in sync mode and on the workers in async mode.
         self._metrics = {"track": deque(maxlen=512), "map": deque(maxlen=128), "loop": deque(maxlen=128)}
+        if self.async_mapping:
+            self._start_async()
 
     def _init_recognition(self):
         """Vocabulary + keyframe database + loop closer (the System
         constructor loads the vocabulary and wires LoopClosing,
-        src/System.cc:76-130). Sync mode runs global BA inline."""
+        src/System.cc:76-130)."""
         c = self.config
         if os.path.exists(VOCAB_NPZ):
             self.vocab = vocab_ops.load_vocabulary(np.load(VOCAB_NPZ), device=self.device)
@@ -143,11 +201,95 @@ class SlamSystem:
         self.n_loops_closed = 0
         self.localization_only = False
 
-    def shutdown(self, drain: bool = True):
-        """Sync mode: no worker runs beside the tracker; nothing to stop."""
+    # ------------------------------------------------------------------
+    # The async workers (LocalMapping / LoopClosing threads)
+    # ------------------------------------------------------------------
+    def _start_async(self):
+        """Start the mapping and loop-closing workers on a box holding the
+        current map (the System constructor's thread spawns,
+        src/System.cc:124-143)."""
+        self._box = MapBox(self.map)
+        self._map_version = 0
+        closer = self.loop_closer
+
+        def mapping_fn(state, kf_id, allow_ba):
+            t0 = _time.perf_counter()
+            kf = torch.tensor(kf_id, dtype=torch.int64, device=self.device)
+            state, victim, vparent, T_red = frontend.mapping_pipeline(
+                state, kf, self._K, self._bf, allow_ba, voc=self.vocab)
+            v, p, T = sync.host_numpy(victim, vparent, T_red)  # also ends the round for its timing
+            if int(v) >= 0:
+                # The tracker rewrites its trajectory on its next frame.
+                self._pending_redirects.append((int(v), int(p), T))
+            self._metrics["map"].append((_time.perf_counter() - t0) * 1e3)
+            return state
+
+        loop_fn = loop_service_fn = None
+        if closer is not None:
+            # The global BA runs detached from the loop worker's structural
+            # lock: on its own thread in abortable chunks, merged when done
+            # (the reference's GBA thread, src/LoopClosing.cc:588).
+            closer.enable_detached_gba()
+
+            def loop_fn(snapshot, kf_id):
+                # Detection on the snapshot, lock-free; returns the closure
+                # (run under the structural lock) or None.
+                t0 = _time.perf_counter()
+                trig = closer.detect_loop(snapshot, int(kf_id), self.n_kf_host)
+                self._metrics["loop"].append((_time.perf_counter() - t0) * 1e3)
+                if trig is None:
+                    return None
+                cand, S12 = trig
+                return lambda state: closer.apply_closure(state, int(kf_id), cand, S12)
+
+            def loop_service_fn():
+                closer.service_gba(self._box)
+
+        self._mapper = AsyncMapper(self._box, mapping_fn, loop_fn=loop_fn, loop_service_fn=loop_service_fn,
+                                   device=self.device)
+
+    def _stop_async(self, drain: bool):
+        """Stop the workers (after their queues drain unless drain=False),
+        let a detached global BA finish and fold in, and adopt the final
+        map (System::Shutdown, src/System.cc:570-596)."""
+        mapper, self._mapper = self._mapper, None
+        try:
+            mapper.shutdown(drain=drain)
+        finally:
+            if self.loop_closer is not None:
+                self.loop_closer.finalize_gba(self._box)
+            self.map, _ = self._box.read()
+            self._box = None
+            self.n_loops_closed = mapper.n_loops
+            self._apply_redirects()
+
+    def _refresh_from_box(self):
+        if self._box is not None:
+            self.map, self._map_version = self._box.read()
+
+    def _apply_redirects(self):
+        while self._pending_redirects:
+            self._apply_cull(*self._pending_redirects.pop(0))
+
+    def _publish_fresh_map(self):
+        """Replace the box's content wholesale (initialization and map load
+        build their map privately)."""
+        if self._box is not None:
+            self._box.publish(self.map)
+            self._map_version = self._box.version
 
     def flush(self):
-        """Sync mode: every frame is decided when its call returns."""
+        """Decide every in-flight pipelined frame (blocking). Called by the
+        shutdown, save and export methods."""
+        if self._pending:
+            self._drain_pending(force=True)
+
+    def shutdown(self, drain: bool = True):
+        """Decide the in-flight frames, stop the workers after draining their
+        queues, finish a detached global BA and adopt the final map."""
+        self.flush()
+        if self._mapper is not None:
+            self._stop_async(drain)
 
     def connect_server(self, host: str, port: int, client_id: int):
         raise _not_ported("the map server connection")
@@ -157,15 +299,6 @@ class SlamSystem:
 
     def poll_server_push(self) -> bool:
         raise _not_ported("the map server connection")
-
-    def save_map(self, path):
-        raise _not_ported("save_map")
-
-    def load_map(self, path):
-        raise _not_ported("load_map")
-
-    def warmup(self, *args, **kwargs):
-        raise _not_ported("warmup")
 
     # ------------------------------------------------------------------
     # Public per-frame entry points (System::TrackMonocular / TrackRGBD /
@@ -199,7 +332,17 @@ class SlamSystem:
         self._metrics["track"].append((_time.perf_counter() - t0) * 1e3)
         return out
 
+    def _settle_pending(self):
+        """Decide the in-flight frames whose statistics have arrived; if
+        pipelining has stopped (health dropped, loss), decide them all, so
+        the synchronous path sees settled state."""
+        if self._pending:
+            self._drain_pending()
+            if self._pending and not self._pipelining_active():
+                self._drain_pending(force=True)
+
     def _step(self, img, depth, timestamp: float):
+        self._settle_pending()
         c = self.config
         img_t = self._tensor(img)
         depth_t = None if depth is None else self._tensor(depth)
@@ -207,22 +350,36 @@ class SlamSystem:
             frame = frontend.build_frame_only(img_t, depth_t, self._K, self._dist, self._bf, self.frame_id,
                                               self._orb_cfg, c.width, c.height)
             return self._first_frame(frame, timestamp)
+        if self.last_frame is None:
+            # A loaded map has no previous frame: track this one against
+            # itself, which falls through to relocalization.
+            self.last_frame = frontend.build_frame_only(img_t, depth_t, self._K, self._dist, self._bf,
+                                                        self.frame_id, self._orb_cfg, c.width, c.height)
+        self._refresh_from_box()
         res = frontend.process_frame_impl(
             self.map, img_t, depth_t, self.last_frame, self._velocity_dev, self._have_velocity, self.ref_kf,
             self._K, self._dist, self._bf, self._depth_limit, self.frame_id, self._orb_cfg, c.width, c.height,
             self.vocab, vo_points=self._vo_points_enabled(), mono=self.sensor == Sensor.MONOCULAR,
         )
+        if self._pipelining_active():
+            return self._enqueue_pending(res, timestamp)
         return self._handle_result(res, timestamp)
 
     def _step_built(self, frame: FrameData, timestamp: float):
         """Shared tracking for a frame built by the caller (stereo path)."""
+        self._settle_pending()
         c = self.config
         if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
             return self._first_frame(frame, timestamp)
+        if self.last_frame is None:
+            self.last_frame = frame
+        self._refresh_from_box()
         res = frontend.track_frame_impl(
             self.map, frame, self.last_frame, self._velocity_dev, self._have_velocity, self.ref_kf, self._K,
             self._bf, self._depth_limit, c.width, c.height, self.vocab, vo_points=self._vo_points_enabled(),
         )
+        if self._pipelining_active():
+            return self._enqueue_pending(res, timestamp)
         return self._handle_result(res, timestamp)
 
     def _first_frame(self, frame: FrameData, timestamp: float):
@@ -233,6 +390,7 @@ class SlamSystem:
         self.frame_id += 1
         if not ok:
             return None
+        self._publish_fresh_map()
         self.state = TrackState.OK
         self._velocity_dev = torch.eye(4, dtype=torch.float32, device=self.device)
         self._have_velocity = False
@@ -246,6 +404,127 @@ class SlamSystem:
         return self.localization_only and self.sensor != Sensor.MONOCULAR
 
     # ------------------------------------------------------------------
+    # Pipelined tracking: deferred decisions
+    # ------------------------------------------------------------------
+    def _pipelining_active(self) -> bool:
+        return (self.pipelined and self._box is not None and self.state == TrackState.OK
+                and not self.localization_only and self._pipeline_healthy)
+
+    def _update_health(self, tracked_ok: bool, stats):
+        self._pipeline_healthy = bool(tracked_ok) and stats[1] >= self.pipeline_min_inliers and self.n_kf_host >= 5
+
+    def _enqueue_pending(self, res: frontend.FrameResult, timestamp: float):
+        """Dispatch bookkeeping of a pipelined frame: start the copy of its
+        statistics, chain the tracking context on the device, defer every
+        decision."""
+        self._pending.append(_Pending(res, sync.AsyncRead(res.stats), timestamp, self.frame_id, self.ref_kf,
+                                      self._map_version))
+        self.last_frame = res.frame
+        self._velocity_dev = res.velocity
+        self._have_velocity = True
+        self.frame_id += 1
+        return res.pose
+
+    def _drain_pending(self, force: bool = False):
+        """Decide the dispatched frames whose statistics have arrived; wait
+        only when the window is over `pipeline_depth` (or force=True)."""
+        while self._pending:
+            must = force or len(self._pending) > self.pipeline_depth
+            if not must and not self._pending[0].stats.is_ready():
+                break
+            e = self._pending.popleft()
+            if not self._process_pending(e):
+                # Loss or reset: every later frame in flight was tracked on a
+                # broken chain; record them lost.
+                for later in self._pending:
+                    self.trajectory.append_rel(later.timestamp, later.ref_kf, np.eye(4), lost=True)
+                    self._publish_pose(later.timestamp, None)
+                self._pending.clear()
+                break
+
+    def _advance_odom_dev(self, e: _Pending):
+        """One step of the device-side odometry chain (no host read)."""
+        if self._odom_dev is None and self._odom_Tcw is not None:
+            self._odom_dev = torch.as_tensor(self._odom_Tcw, dtype=torch.float32).to(self.device)
+        if self._odom_dev is None:
+            self._odom_dev = e.res.pose
+        elif self._odom_skip_next:
+            self._odom_skip_next = False
+        else:
+            self._odom_dev = _odom_step(self._odom_dev, e.res.velocity)
+
+    def _process_pending(self, e: _Pending) -> bool:
+        """The deferred decision half of a frame (the sync path's
+        `_handle_result_impl` less what was chained at dispatch). Returns
+        False when the window must be flushed (loss or reset)."""
+        stats = e.stats.numpy()
+        self._apply_redirects()
+        # Advisory visibility statistics: published only if nothing (our own
+        # later publishes included) landed since the frame was dispatched.
+        self._box.publish(e.res.state, expected_version=e.version)
+        self.map, self._map_version = self._box.read()
+        if self._mapper.n_loops != self._loops_seen:
+            # A loop closed in the background: frames in flight straddle the
+            # jump; drop the motion model and keep the jump out of the
+            # odometry chain.
+            self._loops_seen = self.n_loops_closed = self._mapper.n_loops
+            self._have_velocity = False
+            self._odom_skip_next = True
+        self._mapper.raise_worker_errors()
+
+        tracked_ok = stats[0] > 0
+        self._update_health(tracked_ok, stats)
+        if tracked_ok:
+            if self._prev_close is not None:
+                self._close_decay = 0.7 * self._close_decay + 0.3 * max(0.0, self._prev_close - float(stats[4]))
+            self._prev_close = float(stats[4])
+        else:
+            self._prev_close = None
+        if tracked_ok:
+            self._grace_left = 2
+        elif stats[1] >= 15 and self._grace_left > 0:
+            # Transient dip: keep the stage-2 pose (see _grace_left).
+            self._grace_left -= 1
+            self.trajectory.append_rel(e.timestamp, e.ref_kf, e.res.T_rel)
+            self._advance_odom_dev(e)
+            self._publish_pose(e.timestamp, e.res.pose)
+            return True
+        if not tracked_ok:
+            self.trajectory.append_rel(e.timestamp, e.ref_kf, np.eye(4), lost=True)
+            self._publish_pose(e.timestamp, None)
+            # The sync loss policy: relocalize on this frame's features at
+            # once, else the early reset or LOST.
+            if self.loop_closer is not None:
+                ok_r, Tcw_r, frame_mp, ref = self._relocalize(e.res.frame, e.frame_id)
+                if ok_r:
+                    self.ref_kf = ref
+                    self.last_frame = e.res.frame._replace(pose=Tcw_r, mp=frame_mp)
+                    self._have_velocity = False
+                    self._odom_skip_next = True
+                    self._record(e.timestamp, Tcw_r)
+                    return False  # flush the frames in flight; the chain is re-anchored
+            self._sync_odom_from_device()
+            if self.n_kf_host <= 5:
+                self.reset()
+            else:
+                self.state = TrackState.LOST
+                self._have_velocity = False
+                self._last_Tcw = None
+            return False
+
+        self.trajectory.append_rel(e.timestamp, e.ref_kf, e.res.T_rel)
+        self._advance_odom_dev(e)
+        self._publish_pose(e.timestamp, e.res.pose)
+        if self._need_new_keyframe_stats(stats, frame_id=e.frame_id, lag=len(self._pending) + 1):
+            # Insert the newest tracked frame, not the decided one: the
+            # reference's CreateNewKeyFrame uses mCurrentFrame
+            # (src/Tracking.cc:1206); under the decision lag the newest view
+            # is what the map must cover to feed the next frames.
+            newest = self._pending[-1] if self._pending else e
+            self._insert_keyframe_async(newest.res, newest.ref_kf)
+        return True
+
+    # ------------------------------------------------------------------
     # The per-frame decision
     # ------------------------------------------------------------------
     def _handle_result(self, res: frontend.FrameResult, timestamp: float):
@@ -253,9 +532,9 @@ class SlamSystem:
         self._publish_pose(timestamp, out)
         return out
 
-    def _relocalize(self, frame: FrameData):
+    def _relocalize(self, frame: FrameData, frame_id: int | None = None):
         out = relocalization.relocalize(self.map, self.loop_closer.db, self.vocab, frame, self._K, self._bf,
-                                        self.frame_id)
+                                        self.frame_id if frame_id is None else frame_id)
         self.n_relocalized += int(out[0])
         return out
 
@@ -276,8 +555,23 @@ class SlamSystem:
     def _handle_result_impl(self, res: frontend.FrameResult, timestamp: float):
         # The single per-frame read: every host-needed output in one transfer.
         stats, pose_np, T_rel_np = sync.host_numpy(res.stats, res.pose, res.T_rel)
-        self.map = res.state
+        self._apply_redirects()
+        if self._box is not None:
+            # Advisory: the visibility statistics lose the race against a
+            # structural (mapping or loop) update; the next frame reads the box.
+            self._box.publish(res.state, expected_version=self._map_version)
+            self.map, self._map_version = self._box.read()
+            if self._mapper.n_loops != self._loops_seen:
+                # A loop closed in the background: the map moved under the
+                # motion model (CorrectLoop's map-update mutex analog).
+                self._loops_seen = self.n_loops_closed = self._mapper.n_loops
+                self._have_velocity = False
+                self._last_Tcw = None  # the odometry chain must not absorb the jump
+            self._mapper.raise_worker_errors()
+        else:
+            self.map = res.state
         tracked_ok = stats[0] > 0
+        self._update_health(tracked_ok, stats)
 
         # mbVO localization fallback (src/Tracking.cc:434-501): in
         # localization-only mode, when the local map no longer supports the
@@ -328,19 +622,24 @@ class SlamSystem:
         self._update_odom(pose_np)
 
         if not self.localization_only and self._need_new_keyframe_stats(stats):
-            self._insert_keyframe_fused(res.frame)
-            # Mapping (cull/fuse) may have merged or killed points: re-read
-            # this frame's associations from its own keyframe row.
-            self.last_frame = res.frame._replace(mp=self.map.kf_mp[self.ref_kf])
-            if self.loop_closer is not None:
-                t0 = _time.perf_counter()
-                self.map, closed = self.loop_closer.on_keyframe(self.map, self.ref_kf, self.n_kf_host)
-                self._metrics["loop"].append((_time.perf_counter() - t0) * 1e3)
-                if closed:
-                    self.n_loops_closed += 1
-                    # The map moved under the motion model.
-                    self._have_velocity = False
-                    self._last_Tcw = None
+            if self.async_mapping:
+                self._insert_keyframe_async(res, self.ref_kf)
+                self.last_frame = res.frame._replace(pose=self.map.kf_pose[self.ref_kf],
+                                                     mp=self.map.kf_mp[self.ref_kf])
+            else:
+                self._insert_keyframe_fused(res.frame)
+                # Mapping (cull/fuse) may have merged or killed points: re-read
+                # this frame's associations from its own keyframe row.
+                self.last_frame = res.frame._replace(mp=self.map.kf_mp[self.ref_kf])
+                if self.loop_closer is not None:
+                    t0 = _time.perf_counter()
+                    self.map, closed = self.loop_closer.on_keyframe(self.map, self.ref_kf, self.n_kf_host)
+                    self._metrics["loop"].append((_time.perf_counter() - t0) * 1e3)
+                    if closed:
+                        self.n_loops_closed += 1
+                        # The map moved under the motion model.
+                        self._have_velocity = False
+                        self._last_Tcw = None
         self.frame_id += 1
         return pose_np
 
@@ -356,6 +655,8 @@ class SlamSystem:
     def _publish_pose(self, timestamp, Tcw):
         if not self._pose_listeners:
             return
+        if isinstance(Tcw, torch.Tensor):
+            (Tcw,) = sync.host_numpy(Tcw)
         sample = {
             "timestamp": timestamp,
             "Tcw": None if Tcw is None else np.asarray(Tcw),
@@ -369,10 +670,11 @@ class SlamSystem:
 
     def stats(self) -> dict:
         """Rolling runtime/health snapshot with the reference's keys:
-        per-stage latency percentiles (ms), map/loop counters and the track
-        state. No device read."""
+        per-stage latency percentiles (ms), map/loop counters, the track
+        state and the frames in flight. No device read."""
 
         def pct(xs, q):
+            xs = list(xs)  # one atomic copy: the workers append to "map" and "loop"
             return float(np.percentile(np.asarray(xs), q)) if xs else None
 
         runner = self.loop_closer.gba_runner if self.loop_closer is not None else None
@@ -388,9 +690,112 @@ class SlamSystem:
             "n_loops": self.n_loops_closed,
             "n_frames": self.frame_id,
             "n_resets": self.n_resets,
-            "in_flight": 0,
-            "ba_skipped": 0,
+            "in_flight": len(self._pending),
+            "ba_skipped": self._mapper.n_ba_skipped if self._mapper is not None else 0,
         }
+
+    # ------------------------------------------------------------------
+    def warmup(self, gba_buckets=(16, 32, 64), fuse_buckets=((16, 4096),), verbose: bool = False):
+        """Pay every lazy first-use cost of an online run before frame 0.
+
+        The port has no JIT; what a first frame would otherwise pay is the
+        build of the CUDA kernels and of the native runtime, the library
+        handles (cuBLAS, cuSOLVER) and the allocator's first pools. So this
+        builds both, then runs each program an online run can reach once on
+        inputs of the production shapes (a noise image with unit depth) on
+        maps of its own: the sensor's frame build, tracking, initialization,
+        keyframe append and the mapping round at both `allow_ba` values, the
+        forced keyframe cull, a loop round's database, Sim3, correction and
+        fusion steps (`fuse_buckets`: the (fuse_kfs, mp_cap) rungs), the
+        global-BA chunks at the `gba_buckets` live-keyframe sizes up to
+        `max_keyframes`, relocalization and the odometry step. The system's
+        own state (map, trajectory, frame id, tracking state, database, loop
+        closer) is left as it was."""
+        c = self.config
+        dev = self.device
+        if dev.type == "cuda":
+            kernels.build()
+        native.load()
+        K, bf = self._K, self._bf
+        mono = self.sensor == Sensor.MONOCULAR
+        depth_limit = 0.0 if mono else self._depth_limit
+        gen = torch.Generator(device=dev).manual_seed(0)
+        img = torch.rand((c.height, c.width), generator=gen, device=dev) * 255.0
+        depth = None if self.sensor != Sensor.RGBD else torch.ones((c.height, c.width), device=dev)
+        img_right = torch.roll(img, -16, dims=1)  # a disparity of 16 px
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+
+        def fresh():
+            return empty_map(c.max_keyframes, c.max_map_points, c.n_features, device=dev)
+
+        def frame_dummy():
+            if self.sensor == Sensor.STEREO:
+                return frontend.build_frame_stereo(img, img_right, K, self._dist, bf, 0, self._orb_cfg)
+            return frontend.build_frame_only(img, depth, K, self._dist, bf, 0, self._orb_cfg, c.width, c.height)
+
+        frame = frame_dummy()
+        if mono:
+            # A map of one keyframe at unit depth, as the depth sensors' init
+            # would build it.
+            frame_init = frame._replace(depth=torch.where(frame.kp_valid, 1.0, -1.0))
+        else:
+            frame_init = frame
+        s0, _, _ = initialization.create_initial_map_depth(fresh(), frame_init, K)
+        steps = [
+            ("frame build", frame_dummy),
+            ("tracking", lambda: frontend.track_frame_impl(
+                s0, frame, frame._replace(mp=s0.kf_mp[0]), eye, True, 0, K, bf, depth_limit, c.width, c.height,
+                self.vocab, mono=mono)),
+            ("append keyframe", lambda: frontend.append_keyframe_only(s0, frame, K, bf, depth_limit)),
+        ]
+        s1, kf1 = frontend.append_keyframe_only(s0, frame._replace(mp=s0.kf_mp[0]), K, bf, depth_limit)
+        for allow_ba in (True, False):
+            steps.append((f"mapping round (allow_ba={allow_ba})",
+                          lambda allow_ba=allow_ba: frontend.mapping_pipeline(s1, kf1, K, bf, allow_ba,
+                                                                              voc=self.vocab)))
+        steps.append(("forced keyframe cull", lambda: local_mapping.cull_keyframes(s1, 1, force=True)))
+        if self.vocab is not None:
+            db = kdb.empty_database(c.max_keyframes, c.n_features, self.vocab.n_words, device=dev)
+            steps += [
+                ("database add", lambda: kdb.add_keyframe_from_state(db, self.vocab, s1, 0)),
+                ("database add and detect", lambda: kdb.add_and_detect(db, self.vocab, s1, 1)),
+                ("sim3", lambda: lc.compute_sim3(s1, 1, 0, K, torch.Generator(device=dev).manual_seed(131),
+                                                 fix_scale=not mono, voc=self.vocab)),
+                ("loop correction", lambda: lc.correct_loop(s1, 1, 0, eye)),
+                ("fuse sizes", lambda: sync.host(torch.stack(lc._fuse_sizes(s1, 1, 0)))),
+            ]
+            for fk, mc in fuse_buckets:
+                steps.append((f"loop fusion ({fk}, {mc})",
+                              lambda fk=fk, mc=mc: lc.search_and_fuse(s1, 1, 0, K, fuse_kfs=fk, mp_cap=mc)))
+            steps.append(("covisibility refresh", lambda: refresh_covis(s1)))
+            runner = self.loop_closer.gba_runner or lc.GlobalBARunner(K, bf)
+
+            def warm_gba(kb):
+                prob, slots, used = lc.build_global_ba_problem_compact(s1, K, bf, kb)
+                dense = prob.poses.shape[0] <= runner.dense_max_cams
+                for robust in (True, False):
+                    out = ba.ba_step_count_lam(prob, 1e-4, iters=runner.chunk_iters, cg_iters=runner.cg_iters,
+                                               robust=robust, dense=dense)
+                    sync.host(out[3])
+                prob2 = ba.classify_outliers(prob)
+                poses, fixed = lc.expand_gba_result(s1.kf_pose, prob2.poses, prob2.cam_fixed, slots, used)
+                return lc.merge_gba_into_live(s1, s1.kf_seq, s1.kf_valid, s1.mp_first_seq, s1.mp_valid, poses,
+                                              prob2.points, fixed)
+
+            for kb in gba_buckets:
+                if kb <= c.max_keyframes:
+                    steps.append((f"global BA chunks (kb={kb})", lambda kb=kb: warm_gba(kb)))
+            db1 = kdb.add_keyframe_from_state(db, self.vocab, s1, 0)
+            steps.append(("relocalization", lambda: relocalization.relocalize(s1, db1, self.vocab, frame, K, bf, 0)))
+        steps.append(("odometry step", lambda: _odom_step(eye, eye)))
+
+        for name, thunk in steps:
+            t0 = _time.perf_counter()
+            thunk()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if verbose:
+                print(f"warmup {name}: {_time.perf_counter() - t0:.2f} s", flush=True)
 
     def activate_localization_mode(self):
         """Tracking-only mode: no new keyframes or map mutation
@@ -400,9 +805,24 @@ class SlamSystem:
     def deactivate_localization_mode(self):
         self.localization_only = False
 
+    def _halt_workers(self) -> bool:
+        """Stop the async workers without draining their queues and abort a
+        detached global BA; returns whether workers were running."""
+        running = self._mapper is not None
+        if running:
+            self._mapper.shutdown(drain=False)
+            self._mapper = None
+            self._box = None
+        if self.loop_closer is not None and self.loop_closer.gba_runner is not None:
+            self.loop_closer.gba_runner.abort()
+            self.loop_closer.gba_runner.join()
+        return running
+
     def reset(self):
         """Clear the map and restart (System::Reset -> Tracking::Reset,
-        src/Tracking.cc:1650-1698)."""
+        src/Tracking.cc:1650-1698); in async mode the workers are stopped
+        without draining and started again on the empty map."""
+        restart = self._halt_workers()
         c = self.config
         self.map = empty_map(c.max_keyframes, c.max_map_points, c.n_features, device=self.device)
         self.state = TrackState.NO_IMAGES_YET
@@ -413,27 +833,36 @@ class SlamSystem:
         self.last_kf_frame = -1
         self._have_velocity = False
         self._last_Tcw = None
+        self._pending_redirects = []
+        self._pending.clear()
+        self._odom_dev = None
+        self._odom_skip_next = False
         self._vo_mode = False
         self.n_resets += 1
         self.trajectory = Trajectory()
-        if self.loop_closer is not None and self.loop_closer.gba_runner is not None:
-            # Abort any detached solve before discarding the old closer.
-            self.loop_closer.gba_runner.abort()
-            self.loop_closer.gba_runner.join()
         self._init_recognition()
+        self._loops_seen = 0
+        if restart:
+            self._start_async()
 
-    def _need_new_keyframe_stats(self, stats) -> bool:
+    def _need_new_keyframe_stats(self, stats, frame_id: int | None = None, lag: int = 0) -> bool:
         """NeedNewKeyFrame on the decision vector (the thresholds of
         src/Tracking.cc:1120-1204): monocular wants 90% of the reference
-        keyframe's points and has no close-point trigger."""
+        keyframe's points and has no close-point trigger. `frame_id`
+        defaults to the current frame (sync path); the pipelined path passes
+        the decided frame's id and the decision `lag` (frames dispatched
+        since it). The close-point trigger is anticipated by lag x the
+        measured per-frame decay of the tracked-close count: by the time a
+        lagged decision lands, the view has moved `lag` frames further."""
         n_inliers = stats[1]
         ref_matches = stats[3]
-        frames_since = self.frame_id - self.last_kf_frame
+        frames_since = (self.frame_id if frame_id is None else frame_id) - self.last_kf_frame
         mono = self.sensor == Sensor.MONOCULAR
         c1a = frames_since >= self._max_frames
         c1b = frames_since >= max(self._min_frames, 1)
         c2 = (n_inliers < ref_matches * (0.9 if mono else 0.75)) and n_inliers > 15
-        need_close = not mono and self.config.bf > 0 and stats[4] < 100 and stats[5] > 70
+        anticipate = lag * self._close_decay
+        need_close = not mono and self.config.bf > 0 and stats[4] - anticipate < 100 and stats[5] > 70
         need = (c1b and (c2 or need_close)) or c1a
         if need and self.n_kf_host >= self.config.max_keyframes - 2:
             # Cull-on-full: erase one redundant keyframe so the map keeps
@@ -445,8 +874,20 @@ class SlamSystem:
     def _cull_one(self):
         """One KeyFrameCulling round outside the insertion (bounded-memory
         analog of src/LocalMapping.cc:640-704 on a full map)."""
-        self.map, victim, vparent, T_red = local_mapping.cull_keyframes(self.map, self.ref_kf, force=True)
-        v, p, T = sync.host_numpy(victim, vparent, T_red)
+        if self._box is not None:
+            cell = []
+
+            def step(state):
+                state, victim, vparent, T_red = local_mapping.cull_keyframes(state, self.ref_kf, force=True)
+                cell.extend(sync.host_numpy(victim, vparent, T_red))
+                return state
+
+            self.map = self._box.mutate(step)
+            self._map_version = self._box.version
+            v, p, T = cell
+        else:
+            self.map, victim, vparent, T_red = local_mapping.cull_keyframes(self.map, self.ref_kf, force=True)
+            v, p, T = sync.host_numpy(victim, vparent, T_red)
         self._apply_cull(int(v), int(p), T)
 
     def _insert_keyframe_fused(self, frame: FrameData):
@@ -461,6 +902,38 @@ class SlamSystem:
         self.n_kf_host += 1
         self.last_kf_frame = self.frame_id
         self._apply_cull(int(v), int(p), T)
+
+    def _insert_keyframe_async(self, res: frontend.FrameResult, ref_kf: int):
+        """Tracking-side keyframe creation: the structural append, then the
+        mapping round handed to the worker (CreateNewKeyFrame +
+        LocalMapping::InsertKeyFrame, src/Tracking.cc:1206-1286).
+
+        The frame was tracked on a snapshot. If its reference keyframe has
+        moved in the live map since (a loop correction, a global-BA merge, a
+        local BA), the keyframe is placed by the frame's pose relative to
+        that keyframe, `res.T_rel`, as the trajectory places the frame. The
+        reference appends the snapshot's pose, which after a loop correction
+        leaves the keyframe and its depth points where the map was before
+        the correction, and the frames tracked on them follow it there."""
+        depth_limit = 0.0 if self.sensor == Sensor.MONOCULAR else self._depth_limit
+        snap_ref_pose, snap_ref_seq = res.state.kf_pose[ref_kf], res.state.kf_seq[ref_kf]
+        cell = []
+
+        def step(state):
+            live_ref_pose = state.kf_pose[ref_kf]
+            moved = (state.kf_valid[ref_kf] & (state.kf_seq[ref_kf] == snap_ref_seq)
+                     & torch.any(live_ref_pose != snap_ref_pose))
+            frame = res.frame._replace(pose=torch.where(moved, res.T_rel @ live_ref_pose, res.frame.pose))
+            state, kf_id = frontend.append_keyframe_only(state, frame, self._K, self._bf, depth_limit)
+            cell.append(kf_id)
+            return state
+
+        self.map = self._box.mutate(step)
+        self._map_version = self._box.version
+        self.ref_kf = int(sync.host(cell[0]))
+        self.n_kf_host += 1
+        self.last_kf_frame = self.frame_id
+        self._mapper.submit_keyframe(self.ref_kf)
 
     def _apply_cull(self, victim: int, parent: int, T_redirect):
         """Host bookkeeping for an erased keyframe: rewrite trajectory
@@ -529,9 +1002,50 @@ class SlamSystem:
         self.trajectory.append(timestamp, self.ref_kf, Tcw_np, ref_pose, lost=lost)
         return Tcw_np
 
+    def _settled_map(self) -> MapState:
+        """The newest map once every in-flight frame is decided and the
+        trajectory follows the keyframes the workers erased."""
+        self.flush()
+        self._apply_redirects()
+        self._refresh_from_box()
+        return self.map
+
     def _kf_poses(self) -> np.ndarray:
-        (poses,) = sync.host_numpy(self.map.kf_pose)
+        (poses,) = sync.host_numpy(self._settled_map().kf_pose)
         return poses
+
+    def save_map(self, path):
+        """Write the map in the reference's npz format, with the tracker's
+        reference keyframe, live keyframe count and frame id (System::SaveMap,
+        src/System.cc:807-848)."""
+        serialization.save_map(self._settled_map(), path,
+                               metadata={"ref_kf": self.ref_kf, "n_kf_host": self.n_kf_host,
+                                         "frame_id": self.frame_id})
+
+    def load_map(self, path):
+        """Load a map (either package's file) and start LOST, so the next
+        frames relocalize in it (System::LoadMap, src/System.cc:849-994;
+        Tracking starts LOST, src/Tracking.cc:148-149). The BoW database is
+        rebuilt from the keyframes. In async mode the workers are stopped
+        without draining (their queued rounds belong to the old map) and
+        started again on the loaded one."""
+        self.flush()
+        self._apply_redirects()
+        restart = self._halt_workers()
+        self.map, meta = serialization.load_map(path, device=self.device)
+        self.ref_kf = int(meta.get("ref_kf", 0))
+        self.n_kf_host = int(meta.get("n_kf_host", sync.host(self.map.n_kf)))
+        self.frame_id = int(meta.get("frame_id", 0))
+        self.state = TrackState.LOST
+        self._have_velocity = False
+        self._last_Tcw = None
+        self.last_frame = None
+        if self.vocab is not None:
+            self.loop_closer.db = serialization.rebuild_database(self.map, self.vocab, self.config.max_keyframes,
+                                                                 self.config.n_features)
+        if restart:
+            self._loops_seen = 0
+            self._start_async()
 
     def save_trajectory_tum(self, path):
         self.trajectory.save_tum(path, self._kf_poses())
@@ -544,14 +1058,16 @@ class SlamSystem:
     def get_pose_array(self) -> list[np.ndarray]:
         """Tcw of every live keyframe in id order (System::GetPoseArray,
         src/System.cc:751-785)."""
-        valid, poses = sync.host_numpy(self.map.kf_valid, self.map.kf_pose)
+        m = self._settled_map()
+        valid, poses = sync.host_numpy(m.kf_valid, m.kf_pose)
         return [poses[i] for i in range(len(valid)) if valid[i]]
 
     def get_graph(self) -> dict:
         """Pose-graph snapshot (the `get_graph` service, src/ros_rgbd.cc:
         67-108): live keyframe ids and poses, consecutive-id links, and the
         covisibility edges of weight >= 15."""
-        valid, poses, cov = sync.host_numpy(self.map.kf_valid, self.map.kf_pose, covisibility(self.map))
+        m = self._settled_map()
+        valid, poses, cov = sync.host_numpy(m.kf_valid, m.kf_pose, covisibility(m))
         ids = [i for i in range(len(valid)) if valid[i]]
         links = [{"fromId": a, "toId": b} for a, b in zip(ids[:-1], ids[1:])]
         ii, jj = np.nonzero(np.triu(cov, 1) >= 15)
@@ -569,9 +1085,23 @@ class SlamSystem:
             self._odom_Tcw = diff_twc @ self._odom_Tcw
         self._last_Tcw = Tcw.copy()
 
+    def _sync_odom_from_device(self):
+        """Fold the device-side odometry chain back into the host chain (on
+        a pipeline flush, so the sync path resumes from the right frame)."""
+        if self._odom_dev is not None:
+            (odom,) = sync.host_numpy(self._odom_dev)
+            self._odom_Tcw = odom.astype(np.float64)
+            self._odom_dev = None
+            self._last_Tcw = None
+
     @property
     def odom_pose(self) -> np.ndarray | None:
-        """T_cam_odom (4,4) in the odometry frame, or None before tracking."""
+        """T_cam_odom (4,4) in the odometry frame, or None before tracking.
+        On the pipelined path this reads the device-side chain (one counted
+        transfer, paid by the caller who asked)."""
+        if self._odom_dev is not None:
+            (odom,) = sync.host_numpy(self._odom_dev)
+            return odom.astype(np.float64)
         return None if self._odom_Tcw is None else self._odom_Tcw.copy()
 
 
@@ -590,5 +1120,5 @@ def _renormalize_scale(state: MapState) -> MapState:
 
 def _odom_step(odom: torch.Tensor, diff_twc: torch.Tensor) -> torch.Tensor:
     """One odometry-chain update on the device, without a host read (the
-    reference's pipelined path): odom' = diff @ odom, re-orthonormalized."""
+    pipelined path): odom' = diff @ odom, re-orthonormalized."""
     return lie.orthonormalize(diff_twc @ odom)

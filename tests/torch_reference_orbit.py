@@ -7,6 +7,7 @@
     python3 tests/torch_reference_orbit.py --online [--stereo] [--out FILE]
     python3 tests/torch_reference_orbit.py --stereo [--out FILE]
     python3 tests/torch_reference_orbit.py --desk [--out FILE]
+    python3 tests/torch_reference_orbit.py --async [--runs 3] [--out FILE]
 
 The number that `chip_smoke.py` holds the PyTorch port's loop path to: the
 same orbit (the room, seed and poses of `bench.orbit_frames`), the same
@@ -38,6 +39,19 @@ the port's renderer on the CPU), counted as `evaluate.py run_sequence`
 counts them: tracked frames, the post-initialization tracked share,
 keyframes, resets, and the ATE (rigid for RGB-D, scale-aligned for mono).
 The tracked counts are the floors of `chip_smoke.py`'s gates there.
+
+`--async` runs `bench.py`'s own online and KITTI legs on the reference,
+`SlamSystem(async_mapping=True, pipelined=True)` after `warmup()`, on the
+frames of `chip_smoke.py`'s phases 11 and 12 (all 321 orbit frames at the
+benchmark configuration with fps=30, timestamps i/30; the 60 KITTI-geometry
+pairs), `--runs` times each (default 3) in one process: the workers' timing
+decides which mapping rounds skip their BA, so runs differ. A run the
+reference fails records the frame and the exception and goes on with the
+next. The online leg's frames also run once in sync mode. Each record has
+the frames fed, the failure, the tracked frames, keyframes, loops closed,
+resets, the ATE (`utils.trajectory.ate_rmse` without scale) of a run that
+finished, and for the online leg the ATE over its first
+`chip_smoke.ASYNC_PREFIX` frames, which a failed run has decided too.
 """
 
 import json
@@ -165,10 +179,13 @@ def compare_small():
     }), flush=True)
 
 
-def _slam_ate(slam, gt_Tcw):
+def _slam_ate(slam, gt_Tcw, before=None):
+    """ATE of the tracked frames (those with timestamps < `before`, if given)."""
     from orb_slam2v2_1_tpu.utils.trajectory import ate_rmse
 
     est = slam.trajectory.absolute_poses(np.asarray(slam.map.kf_pose))
+    if before is not None:
+        est = [(t, T) for t, T in est if t < before - 1e-9]
     return ate_rmse(est, {t: np.linalg.inv(T) for t, T in gt_Tcw.items()}, align_scale=False)
 
 
@@ -283,8 +300,101 @@ def desk():
     return out
 
 
+def _track_until_failure(slam, frames, track, dt):
+    """Feed the frames; returns (frames fed, the exception that stopped the
+    run or None). After a failure the workers are stopped without draining
+    (errors there are recorded, not raised)."""
+    for i, (a, b) in enumerate(frames):
+        try:
+            track(a, b, i * dt)
+        except Exception as exc:  # noqa: BLE001 — the reference's failure is the record
+            try:
+                slam.shutdown(drain=False)
+            except Exception:  # noqa: BLE001
+                pass
+            return i, exc
+    try:
+        slam.flush()
+        slam.shutdown()
+    except Exception as exc:  # noqa: BLE001
+        return len(frames), exc
+    return len(frames), None
+
+
+def async_legs(runs):
+    """chip_smoke.py phases 11 and 12 on the reference: bench.py's online leg
+    (RGB-D orbit) and KITTI leg (stereo dolly) in its production mode, and,
+    once, the online leg's frames in sync mode (deterministic)."""
+    import dataclasses
+
+    import chip_smoke
+    from orb_slam2v2_1_tpu.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu.utils import synthetic
+    from orb_slam2v2_1_tpu_torch.kernel_times import KITTI
+
+    cfg = dataclasses.replace(SlamConfig(**BENCH), fps=30.0)
+    gt = orbit_poses(TOTAL)
+    imgs, deps = render_orbit(cfg, gt)
+    g0 = np.linalg.inv(gt[0])
+    kcfg = SlamConfig(**KITTI)
+    room = synthetic.make_room(np.random.default_rng(3))
+    K = jnp.asarray(kcfg.K)
+    pairs, kgt = [], {}
+    for i in range(chip_smoke.KITTI_FRAMES):
+        Tcw = np.eye(4, dtype=np.float32)
+        Tcw[0, 3], Tcw[2, 3] = -chip_smoke.KITTI_STEP[0] * i, -chip_smoke.KITTI_STEP[1] * i
+        Tr = Tcw.copy()
+        Tr[0, 3] -= kcfg.bf / kcfg.fx
+        pairs.append((synthetic.render(room, jnp.asarray(Tcw), K, kcfg.width, kcfg.height)[0],
+                      synthetic.render(room, jnp.asarray(Tr), K, kcfg.width, kcfg.height)[0]))
+        kgt[i * 0.1] = Tcw
+    legs = [("online_sync", 0)] + [(name, run) for run in range(runs) for name in ("online_async", "kitti_async")]
+    out = []
+    for name, run in legs:
+        online = name.startswith("online")
+        mode = {} if name == "online_sync" else {"async_mapping": True, "pipelined": True}
+        slam = SlamSystem(config=cfg if online else kcfg, sensor=Sensor.RGBD if online else Sensor.STEREO, **mode)
+        t0 = time.time()
+        if mode:
+            slam.warmup() if online else slam.warmup(gba_buckets=(16, 32))
+        warm = time.time() - t0
+        t0 = time.time()
+        if online:
+            fed, exc = _track_until_failure(slam, list(zip(imgs, deps)), slam.track_rgbd, 1.0 / 30.0)
+        else:
+            fed, exc = _track_until_failure(slam, pairs, slam.track_stereo, 0.1)
+        wall = time.time() - t0
+        entries = slam.trajectory.entries
+        rate = 30 if online else 10
+        ref_gt = {i / 30.0: gt[i] @ g0 for i in range(TOTAL)} if online else kgt
+        prefix = chip_smoke.ASYNC_PREFIX
+        out.append({"path": name, "run": run, "package": "orb_slam2v2_1_tpu (JAX, CPU)",
+                    "frames": TOTAL if online else len(pairs), "frames_fed": fed,
+                    "failure": None if exc is None else repr(exc)[:300], "entries": len(entries),
+                    "tracked": sum(not e.lost for e in entries),
+                    "lost_frames": [round(e.timestamp * rate) for e in entries if e.lost],
+                    "keyframes": slam.n_kf_host, "loops_closed": slam.n_loops_closed, "resets": slam.n_resets,
+                    "ate_m": _slam_ate(slam, ref_gt) if exc is None else None,
+                    f"ate_first_{prefix}_m": _slam_ate(slam, ref_gt, before=prefix / 30.0) if online else None,
+                    "warmup_s": warm, "wall_s": wall, "stats": slam.stats()})
+        print(json.dumps(out[-1], default=str), flush=True)
+    return out
+
+
 def main():
     args = sys.argv[1:]
+    if args and args[0] == "--async":
+        runs = int(args[args.index("--runs") + 1]) if "--runs" in args else 3
+        out = args[args.index("--out") + 1] if "--out" in args else None
+        records = async_legs(runs)
+        if out:
+            os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+            with open(out, "w") as f:
+                json.dump(records, f, indent=1, default=str)
+        # A run that failed can leave the reference's native worker threads
+        # unjoined, and their destructors abort at interpreter exit.
+        sys.stdout.flush()
+        os._exit(0)
     if args == ["--compare-small"]:
         return compare_small()
     if args == ["--sensitivity"]:
