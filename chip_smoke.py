@@ -83,7 +83,42 @@ Phases, each of which raises (exit code != 0) on failure:
      the live one does, and a restart at the first of those frames that
      only relocalization can recover relocalizes within three frames, its
      motion from the keyframe it relocalized on within 0.10 m and 5 deg of
-     the ground truth's.
+     the ground truth's;
+ 14. evaluate.py's adv_clutter_rgbd: `make_adversarial(default_rng(21))`
+     along `desk_trajectory(150, extent=0.55)`, degraded as evaluate.py
+     degrades it (exposure steps, motion blur, noise, one generator), at
+     phase 9's configuration in sync mode: evaluate.py's gate against phase
+     9's ATE of this run (ATE <= max(3 x clean, 0.05 m), tracked share after
+     the first pose >= 0.85) and at least the reference's tracked count less 2;
+ 15. adv_mono: `make_adversarial(default_rng(22), max_tilt_deg=35)` along
+     `lateral_trajectory(100, extent=0.9)`, noise from `default_rng(33)`,
+     bf=0, scale-aligned; the gate against phase 10;
+ 16. adv_stereo_dolly: phase 7's room and dolly with the degradation drawn
+     from `default_rng(43)`; the gate against phase 7; fast_score_nms twice
+     per pair;
+ 17. the command line: 100 frames of the desk sweep written as a TUM RGB-D
+     directory (RGB and 16-bit depth PNGs, depth stamps 4 ms late, the
+     ground truth) with a settings file, then `python -m
+     orb_slam2v2_1_tpu_torch.run_slam` run on it as a subprocess on the card
+     in its default async mode with `--save-map --ply --viz-dir`: exit 0, the
+     printed ATE within twice the reference's CLI on the same directory, the
+     map loads in a fresh system, the PLY holds its valid points, the PNGs
+     exist, the kernels' launches (printed by the subprocess) one FAST per
+     frame; `StereoRectifier` at EuRoC's calibration and `backproject` on the
+     card against the CPU (1e-3 gray levels, 1e-5 m and the same NaN rows);
+ 18. two sessions on one `MapServerNode` (loopback, maps on the card):
+     session 1 streams desk frames 0-69 from a sync `SlamSystem`, session 2
+     frames 50-119 in its own world; the operator lists both; session 2's
+     `fetch_server_map(merge_with=1)` merges session 1's map into its world
+     on the server's connection thread (kernel 2 launched there, counted
+     under the role "server"): the merge accepted, the adopted map holding
+     both sessions' keyframes and fused points, session 1's keyframe centers
+     within twice the reference's RMS from the truth in session 2's world,
+     session 2 LOST; then frames 20-22, which only session 1 saw: session 2
+     is back from LOST on session 1's part of the map (its frame matched to
+     at least 20 of session 1's points; a relocalization, if it took one, on
+     a keyframe of session 1), the first pose within 0.10 m and 5 deg of the
+     truth; no exception on either stream's worker.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -190,6 +225,35 @@ RELOC_SAME_TCW = 1e-4
 RELOC_MIN_TURN_DEG = 60.0
 RELOC_TRIES = 3
 RELOC_POSE_BOUND = (0.10, 5.0)  # m, deg: about two frames of the turn
+# Phases 14-16: evaluate.py's adversarial legs and its gate (evaluate.py:288-304):
+# ATE <= max(3 x the clean twin's ATE, 0.05 m), tracked share after the first
+# pose >= 0.85. The reference on the same frames (`python evaluate.py --cpu`,
+# JAX on the CPU of an H100 machine): adv_clutter_rgbd 150/150, 17 keyframes,
+# ATE 0.0236 m; adv_mono 75/100 (the first pose at frame 25), 10 keyframes,
+# ATE 0.00497 m scale-aligned; adv_stereo_dolly 75/75, 8 keyframes, ATE
+# 0.03131 m. The port must track at least its count less 2.
+ADV_ATE_FLOOR, ADV_MIN_POST_INIT = 0.05, 0.85
+ADV_REF = {"adv_clutter_rgbd": (150, 0.0236), "adv_mono": (75, 0.00497), "adv_stereo_dolly": (75, 0.03131)}
+# Phase 17: the CLI on CLI_FRAMES frames of the desk sweep written as a TUM
+# directory; its ATE within twice the reference's CLI on the same directory
+# (written from the CPU's renders) in the same async mode:
+# `tests/torch_reference_cli_server.py --cli` (JAX on the CPU of an H100
+# machine): exit 0, ATE 0.0056 m.
+CLI_FRAMES, CLI_TIMEOUT_S = 100, 300
+CLI_REF_ATE = 0.0056
+# Phase 18: session 1 streams desk sweep frames SESSION_1, session 2 frames
+# SESSION_2 (both [first, end)); session 2 then sees REVISIT, which only
+# session 1 saw. Session 1's keyframe centers in the merged map are held
+# within twice the reference's RMS from the truth on the same sessions'
+# deltas: `tests/torch_reference_cli_server.py --server DIR --keys 10` (JAX on
+# the CPU of an H100 machine, on the sessions this phase streamed): the
+# merge accepted for every key, RMS 0.0062-0.0300 m by the Sim3 RANSAC's key,
+# median 0.01654 m (the port given the reference's sets of key 0 gives its
+# 0.006234 m). In the reference, as in the port, the revisit frames come
+# back by tracking against the adopted map's reference keyframe, without a
+# relocalization.
+SESSION_1, SESSION_2, REVISIT = (0, 70), (50, 120), (20, 23)
+SERVER_REF_CENTER_RMS = 0.01654
 
 
 def log(*a):
@@ -587,17 +651,26 @@ def run_stereo(name, cfg, n, step, ate_bound, min_tracked, card, cpu_check=False
 def run_desk(name, cfg, sensor, poses, ate_bound, card):
     """Phases 9 and 10: an evaluate.py desk leg through SlamSystem on the
     card, counted as evaluate.py's run_sequence counts it."""
-    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
     from orb_slam2v2_1_tpu_torch.utils import synthetic
 
-    mono = sensor == Sensor.MONOCULAR
     imgs, deps, gt = synthetic.desk_frames(cfg, poses)  # no device given: the card
+    frames = list(zip(imgs, [None] * len(imgs) if sensor == Sensor.MONOCULAR else deps))
+    return run_frames(name, cfg, sensor, frames, gt, ate_bound, card)
+
+
+def run_frames(name, cfg, sensor, frames, gt, ate_bound, card):
+    """Track (a, b) frame pairs (image and depth, left and right, or image
+    and None) through a sync `SlamSystem` of `sensor` on the card; ATE
+    against the ground-truth Tcw `gt` (scale-aligned for mono) within
+    `ate_bound`, fast_score_nms launched once per image."""
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+
+    mono = sensor == Sensor.MONOCULAR
     slam = SlamSystem(config=cfg, sensor=sensor)
-    if mono:
-        outs, _, wall, launches, syncs = drive(slam, [(img, None) for img in imgs],
-                                               lambda a, b, ts: slam.track_monocular(a, ts))
-    else:
-        outs, _, wall, launches, syncs = drive(slam, list(zip(imgs, deps)), slam.track_rgbd)
+    track = {Sensor.MONOCULAR: lambda a, b, ts: slam.track_monocular(a, ts), Sensor.RGBD: slam.track_rgbd,
+             Sensor.STEREO: slam.track_stereo}[sensor]
+    outs, _, wall, launches, syncs = drive(slam, frames, track)
     n = len(outs)
     ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)}, align_scale=mono)
     entries = slam.trajectory.entries
@@ -615,12 +688,332 @@ def run_desk(name, cfg, sensor, poses, ate_bound, card):
         f"{rec['fps']:.2f} frames/s, host syncs {syncs / n:.1f}/frame, launches {launches}, {card}")
     if not ate <= ate_bound:
         raise AssertionError(f"{name}: ATE {ate:.5f} m > {ate_bound:.5f} m")
-    if launches["fast_score_nms"] != n:
+    per_frame = 2 if sensor == Sensor.STEREO else 1
+    if launches["fast_score_nms"] != per_frame * n:
         raise AssertionError(f"{name}: fast_score_nms {launches['fast_score_nms']} launches for {n} frames")
     for kernel, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {kernel} was not launched by the {name} path")
     return rec, launches
+
+
+def run_adversarial(name, cfg, sensor, scene, poses, rng, clean_ate, card):
+    """Phases 14-16: an evaluate.py adversarial leg, its frames degraded as
+    evaluate.py degrades them (`synthetic.adversarial_frames`, one generator
+    through the exposure schedule and every frame's noise), held to
+    evaluate.py's gate (evaluate.py:288-304): ATE <= max(3 x the clean twin's
+    ATE in this run, 0.05 m) and a tracked share after the first pose >=
+    0.85; and tracked at least the reference's count on the same frames
+    less 2 (ADV_REF)."""
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
+    from orb_slam2v2_1_tpu_torch.utils import synthetic
+
+    mode = {Sensor.RGBD: "rgbd", Sensor.MONOCULAR: "mono", Sensor.STEREO: "stereo"}[sensor]
+    imgs, second = synthetic.adversarial_frames(cfg, scene, poses, rng, mode)
+    frames = list(zip(imgs, [None] * len(imgs) if second is None else second))
+    bound = max(3.0 * clean_ate, ADV_ATE_FLOOR)
+    rec, launches = run_frames(name, cfg, sensor, frames, poses, bound, card)
+    ref_tracked, ref_ate = ADV_REF[name]
+    rec.update(clean_twin_ate_m=clean_ate, reference_tracked=ref_tracked, reference_ate_m=ref_ate)
+    if rec["tracked_share_post_init"] < ADV_MIN_POST_INIT:
+        raise AssertionError(f"{name}: tracked share after the first pose {rec['tracked_share_post_init']:.3f} < "
+                             f"{ADV_MIN_POST_INIT}")
+    if rec["tracked"] < ref_tracked - 2:
+        raise AssertionError(f"{name}: tracked {rec['tracked']} < the reference's {ref_tracked} less 2")
+    return rec, launches
+
+
+CLI_WRAPPER = """
+import json, runpy, sys
+from orb_slam2v2_1_tpu_torch import kernels
+try:
+    runpy.run_module("orb_slam2v2_1_tpu_torch.run_slam", run_name="__main__", alter_sys=True)
+finally:
+    print("kernel launches: " + json.dumps(kernels.LAUNCHES), flush=True)
+"""
+
+
+def settings_text(cfg) -> str:
+    """`cfg` as a settings file in the reference's YAML style
+    (`utils/config.py load_settings`), no distortion."""
+    rows = [("Camera.fx", cfg.fx), ("Camera.fy", cfg.fy), ("Camera.cx", cfg.cx), ("Camera.cy", cfg.cy),
+            ("Camera.k1", 0.0), ("Camera.k2", 0.0), ("Camera.p1", 0.0), ("Camera.p2", 0.0),
+            ("Camera.width", cfg.width), ("Camera.height", cfg.height), ("Camera.fps", cfg.fps),
+            ("Camera.bf", cfg.bf), ("ThDepth", cfg.th_depth), ("DepthMapFactor", cfg.depth_map_factor),
+            ("ORBextractor.nFeatures", cfg.n_features), ("ORBextractor.scaleFactor", cfg.scale_factor),
+            ("ORBextractor.nLevels", cfg.n_levels), ("ORBextractor.iniThFAST", cfg.fast_threshold),
+            ("ORBextractor.minThFAST", cfg.fast_min_threshold)]
+    return "%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in rows)
+
+
+def write_cli_dataset(cfg, data_dir, device=None):
+    """Phase 17's TUM-layout directory: CLI_FRAMES frames of evaluate.py's
+    desk sweep, rendered on `device` (None: the card), with its settings file
+    `desk.yaml`. Returns the settings file's path."""
+    import shutil
+
+    from orb_slam2v2_1_tpu_torch.utils import datasets, synthetic
+
+    shutil.rmtree(data_dir, ignore_errors=True)
+    imgs, deps, gt = synthetic.desk_frames(cfg, synthetic.desk_trajectory(CLI_FRAMES), device=device)
+    datasets.write_tum_rgbd(os.path.join(data_dir, "seq"), imgs.cpu().numpy(), deps.cpu().numpy(), gt)
+    yaml = os.path.join(data_dir, "desk.yaml")
+    with open(yaml, "w") as f:
+        f.write(settings_text(cfg))
+    return yaml
+
+
+def run_cli(cfg, card):
+    """Phase 17: `python -m orb_slam2v2_1_tpu_torch.run_slam` on a written
+    TUM directory, as a subprocess on the card in its default async mode;
+    then the rectifier and the back-projection on the card against the CPU."""
+    import re
+    import shutil
+    import subprocess
+
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem, TrackState
+    from orb_slam2v2_1_tpu_torch.ops import rectify
+    from orb_slam2v2_1_tpu_torch.utils import config, datasets, pointcloud
+
+    base = os.path.join(ROOT, "build", "chip_smoke")
+    data_dir, out = os.path.join(base, "tum_desk"), os.path.join(base, "cli")
+    t0 = time.perf_counter()
+    yaml = write_cli_dataset(cfg, data_dir)
+    write_s = time.perf_counter() - t0
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    files = {k: os.path.join(out, v) for k, v in (("traj", "traj.txt"), ("map", "map.npz"), ("ply", "map.ply"),
+                                                   ("viz", "viz"))}
+    cmd = [sys.executable, "-c", CLI_WRAPPER, "--dataset", os.path.join(data_dir, "seq"), "--settings", yaml,
+           "--out", files["traj"], "--save-map", files["map"], "--ply", files["ply"], "--viz-dir", files["viz"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "stdout.txt"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"run_slam CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    ate = float(re.search(r"ATE RMSE: ([0-9.]+) m", proc.stdout).group(1))
+    fps = float(re.search(r"frames in [0-9.]+s \(([0-9.]+) fps\)", proc.stdout).group(1))
+    p50, p90 = (float(x) for x in re.search(r"final stats: \S+ track p50/p90=([0-9.]+)/([0-9.]+)ms",
+                                             proc.stdout).groups())
+    with open(files["traj"]) as f:
+        tracked = sum(1 for ln in f if ln.strip())
+    launches = json.loads(proc.stdout.split("kernel launches: ")[-1].splitlines()[0])
+    slam = SlamSystem(config=config.load_settings(yaml), sensor=Sensor.RGBD)  # no device given: the card
+    slam.load_map(files["map"])
+    mp_pos, mp_valid = (t.cpu().numpy() for t in (slam.map.mp_pos, slam.map.mp_valid))
+    with open(files["ply"]) as f:
+        lines = f.read().splitlines()
+    ply = np.array([[float(v) for v in ln.split()] for ln in lines[lines.index("end_header") + 1:]])
+    pngs = sorted(os.listdir(files["viz"]))
+    bound = 2 * CLI_REF_ATE
+    rec = {"path": "cli_run_slam", "frames": CLI_FRAMES, "tracked": tracked, "track_ms_p50": p50,
+           "track_ms_p90": p90, "ate_m": ate, "ate_bound_m": bound,
+           "reference_ate_m": CLI_REF_ATE, "fps_printed": fps, "wall_s": wall, "dataset_write_s": write_s,
+           "launches": launches, "map_keyframes": slam.n_kf_host, "map_points": int(mp_valid.sum()),
+           "ply_points": len(ply), "pngs": len(pngs), "card": card}
+    # The rectifier at EuRoC's factory calibration and the back-projection,
+    # on the card against the CPU (the same host-built maps).
+    rng = np.random.default_rng(5)
+    W, H = datasets.EUROC_CALIB["size"]
+    left, right = ((rng.random((H, W)) * 255).astype(np.float32) for _ in range(2))
+    calib = [datasets.EUROC_CALIB[k] for k in ("K1", "D1", "K2", "D2", "R", "T", "size")]
+    on_card = rectify.StereoRectifier(*calib)  # no device given: the card
+    on_cpu = rectify.StereoRectifier(*calib, device="cpu")
+    rect_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(on_card(left, right), on_cpu(left, right)))
+    depth = datasets.read_depth_tum(os.path.join(data_dir, "seq", "depth", "00000.png"))
+    depth[::7, ::5] = 0.0  # holes
+    Tcw = torch.eye(4)
+    Tcw[:3, 3] = torch.tensor([0.1, -0.2, 0.3])
+    K = torch.tensor(cfg.K, dtype=torch.float32)
+    dev = on_card.device
+    bp_card = pointcloud.backproject(torch.from_numpy(depth).to(dev), Tcw.to(dev), K.to(dev)).cpu().numpy()
+    bp_cpu = pointcloud.backproject(torch.from_numpy(depth), Tcw, K).numpy()
+    same_nan = bool(np.array_equal(np.isnan(bp_card), np.isnan(bp_cpu)))
+    bp_err = float(np.nanmax(np.abs(bp_card - bp_cpu)))
+    rec.update(rectifier_max_err=rect_err, backproject_max_err_m=bp_err, backproject_same_nan=same_nan)
+    log(f"cli run_slam: exit 0, {tracked}/{CLI_FRAMES} tracked, {slam.n_kf_host} keyframes, ATE {ate:.5f} m (bound "
+        f"{bound:.5f}, the reference {CLI_REF_ATE}), track ms p50 {p50:.1f} p90 {p90:.1f}, {fps:.2f} frames/s "
+        f"printed, {wall:.1f} s with start-up, map {int(mp_valid.sum())} points, PLY "
+        f"{len(ply)} points, {len(pngs)} PNGs, launches {launches}; rectifier card vs CPU {rect_err:.2e} gray "
+        f"levels, backproject {bp_err:.2e} m (same NaN rows {same_nan}), {card}")
+    if not ate <= bound:
+        raise AssertionError(f"cli run_slam: ATE {ate:.5f} m > {bound:.5f} m")
+    if slam.state != TrackState.LOST or slam.n_kf_host < 2:
+        raise AssertionError(f"cli run_slam: the saved map loads as {slam.state}, {slam.n_kf_host} keyframes")
+    if len(ply) != int(mp_valid.sum()) or not np.allclose(ply, mp_pos[mp_valid], atol=1e-4):
+        raise AssertionError(f"cli run_slam: the PLY's {len(ply)} points are not the map's {int(mp_valid.sum())}")
+    if not any(p.startswith("frame_") for p in pngs) or not any(p.startswith("map_") for p in pngs):
+        raise AssertionError(f"cli run_slam: viz PNGs missing: {pngs}")
+    if launches["fast_score_nms"] != CLI_FRAMES or launches["masked_best_two"] <= 0:
+        raise AssertionError(f"cli run_slam: launches {launches} for {CLI_FRAMES} frames")
+    if not (rect_err <= 1e-3 and bp_err <= 1e-5 and same_nan):
+        raise AssertionError("cli: the rectifier or the back-projection on the card disagrees with the CPU")
+    return rec, launches
+
+
+def _wait_for(cond, what, timeout_s=60.0):
+    t0 = time.time()
+    while not cond():
+        if time.time() - t0 > timeout_s:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _pose_err(T, T_gt):
+    """(center distance m, rotation angle deg) between two Tcw."""
+    import numpy as np
+
+    T, T_gt = np.asarray(T, np.float64), np.asarray(T_gt, np.float64)
+    c, c_gt = -T[:3, :3].T @ T[:3, 3], -T_gt[:3, :3].T @ T_gt[:3, 3]
+    R = T[:3, :3] @ T_gt[:3, :3].T
+    return float(np.linalg.norm(c - c_gt)), float(np.degrees(np.arccos(np.clip((np.trace(R) - 1) / 2, -1, 1))))
+
+
+def two_session_frames(cfg, device=None):
+    """Phase 18's frames: the desk sweep's frames 0 to SESSION_2's end,
+    rendered in one world (the first camera's, as evaluate.py's desk legs
+    are), on `device` (None: the card). Returns images, depths and the
+    ground-truth Tcw in that world; a session's truth in its own world is
+    gt[f] @ inv(gt[its first frame])."""
+    from orb_slam2v2_1_tpu_torch.utils import synthetic
+
+    return synthetic.desk_frames(cfg, synthetic.desk_trajectory(DESK_FRAMES)[:SESSION_2[1]], device=device)
+
+
+def run_two_sessions(cfg, card):
+    """Phase 18: two sessions on one map server on loopback, on the card.
+    Session 1 streams desk frames SESSION_1, session 2 frames SESSION_2 (in
+    its own world, its first frame's); session 2 fetches its map merged with
+    session 1's, starts LOST and relocalizes on frames only session 1 saw."""
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch import kernels, sync
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem, TrackState
+    from orb_slam2v2_1_tpu_torch.parallel.stream import MapServerNode, OperatorClient
+    from orb_slam2v2_1_tpu_torch.utils import serialization
+
+    all_imgs, all_deps, all_gt = two_session_frames(cfg)
+    node = MapServerNode(port=0, max_kf=cfg.max_keyframes, max_mp=cfg.max_map_points, n_kp=cfg.n_features)
+    node.set_intrinsics(cfg.K)
+    clients = []
+    try:
+        recs = []
+        for cid, (a, b) in ((1, SESSION_1), (2, SESSION_2)):
+            imgs, deps = all_imgs[a:b], all_deps[a:b]
+            gt = [T @ np.linalg.inv(all_gt[a]) for T in all_gt[a:b]]
+            slam = SlamSystem(config=cfg, sensor=Sensor.RGBD)
+            clients.append(slam)
+            slam.connect_server("127.0.0.1", node.port, cid)
+            outs, _, wall, launches, syncs = drive(slam, list(zip(imgs, deps)), slam.track_rgbd)
+            ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
+            recs.append(online_record(slam, outs, wall, launches, syncs, ate, card, session=cid, frames_of_sweep=[a, b - 1]))
+        s1, s2 = clients
+        for cid, slam in ((1, s1), (2, s2)):
+            _wait_for(lambda: cid in node.server.clients and node.server.clients[cid].n_deltas >= slam._stream.n_queued,
+                      f"the server to apply session {cid}'s deltas")
+        op = OperatorClient("127.0.0.1", node.port)
+        try:
+            listing = op.list_clients()
+        finally:
+            op.close()
+        n1, n2 = (int(node.server.client_map(c).n_kf) for c in (1, 2))
+        mp1, mp2 = (int(node.server.client_map(c).n_mp) for c in (1, 2))
+        os.makedirs(os.path.join(ROOT, "build", "chip_smoke"), exist_ok=True)
+        for c in (1, 2):
+            serialization.save_map(node.server.client_map(c), os.path.join(ROOT, "build", "chip_smoke",
+                                                                           f"session{c}.npz"))
+
+        # --- the merge, on the server's connection thread ---
+        kernels.reset_launch_counts()
+        sync.reset()
+        t0 = time.perf_counter()
+        s2.fetch_server_map(merge_with=1)
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        merge = dict(node.last_merge or {})
+        merge_launches = {k: dict(v) for k, v in kernels.LAUNCHES_BY_ROLE.items()}
+        server_reads = sync.BY_ROLE.get("server", 0)
+        merged_kf = int(s2.map.n_kf)
+        # Session 1's keyframes follow session 2's in the merged map (session 2
+        # is the merge's fixed side); their ground truth in session 2's world.
+        kf_valid, kf_pose, kf_frame = (t.cpu().numpy() for t in (s2.map.kf_valid, s2.map.kf_pose, s2.map.kf_frame_id))
+        g0 = np.linalg.inv(all_gt[SESSION_2[0]])
+        errs = [_pose_err(kf_pose[n2 + k], all_gt[SESSION_1[0] + int(kf_frame[n2 + k])] @ g0)[0]
+                for k in range(n1) if kf_valid[n2 + k]]
+        center_rms = float(np.sqrt(np.mean(np.square(errs)))) if errs else float("inf")
+        state_after_fetch = s2.state
+
+        # --- session 2 on frames only session 1 saw ---
+        relocs, relocalize, reloc_outs = [], s2._relocalize, []
+
+        def logged_relocalize(frame, frame_id=None):
+            out = relocalize(frame, frame_id)
+            relocs.append((len(reloc_outs), out[3]))
+            return out
+
+        s2._relocalize = logged_relocalize
+        for j, f in enumerate(range(*REVISIT)):
+            reloc_outs.append(s2.track_rgbd(all_imgs[f], all_deps[f], (SESSION_2[1] - SESSION_2[0] + j) * 0.1))
+        first = next((j for j, o in enumerate(reloc_outs) if o is not None), None)
+        reloc_kf = next((kf for _, kf in relocs if kf is not None), None)
+        # The last revisit frame's map points from session 1's part of the merged map.
+        (frame_mp,) = sync.host_numpy(s2.last_frame.mp)
+        s1_points = int(((frame_mp >= mp2) & (frame_mp < mp2 + mp1)).sum())
+        state_after_revisit = s2.state
+        reloc_err = (_pose_err(reloc_outs[first], all_gt[REVISIT[0] + first] @ g0) if first is not None
+                     else (float("inf"),) * 2)
+        worker_errors = [c._stream.exception for c in clients]
+        bytes_sent = [c._stream.bytes_sent for c in clients]
+        max_delta = max(c._stream.max_delta for c in clients)
+    finally:
+        for slam in clients:
+            slam.shutdown()
+        node.stop()
+    bound = 2 * SERVER_REF_CENTER_RMS
+    rec = {"path": "two_sessions", "sessions": recs, "listed_clients": sorted(listing.get("clients", {})),
+           "session_keyframes": [n1, n2], "merged_keyframes": merged_kf, "merge": merge, "fetch_ms": fetch_ms,
+           "merge_launches_by_thread": merge_launches, "server_reads": server_reads,
+           "session1_center_rms_m": center_rms, "center_rms_bound_m": bound,
+           "reference_center_rms_m": SERVER_REF_CENTER_RMS, "revisit_frames": list(range(*REVISIT)),
+           "revisit_poses": [o is not None for o in reloc_outs], "relocalized_on": reloc_kf,
+           "revisit_session1_points": s1_points, "state_after_revisit": state_after_revisit.name,
+           "reloc_err_m_deg": reloc_err, "bytes_streamed": bytes_sent, "largest_delta": max_delta,
+           "worker_errors": [repr(e) for e in worker_errors if e is not None], "card": card}
+    for r in recs:
+        log(f"two sessions, session {r['session']} (sweep frames {r['frames_of_sweep']}): {r['tracked']}/{r['frames']} "
+            f"tracked, {r['keyframes']} keyframes, ATE {r['ate_m']:.5f} m, track ms p50 {r['track_ms_p50']:.1f} p90 "
+            f"{r['track_ms_p90']:.1f}, {r['fps']:.2f} frames/s, launches {r['launches']}")
+    log(f"two sessions: listed {rec['listed_clients']}, merge of {n1}+{n2} keyframes -> {merged_kf}: {merge}, fetch "
+        f"{fetch_ms:.1f} ms, masked_best_two by thread during the merge {merge_launches['masked_best_two']}, session 1's "
+        f"keyframe centers {center_rms:.4f} m RMS from the truth in session 2's world (bound "
+        f"{bound:.4f}), after the fetch "
+        f"{state_after_fetch.name}; frames {list(range(*REVISIT))}: poses {rec['revisit_poses']} (relocalized on "
+        f"keyframe {reloc_kf}; session 1's are {n2}-{n2 + n1 - 1}), {state_after_revisit.name} with {s1_points} of "
+        f"session 1's points, error {reloc_err[0]:.4f} m {reloc_err[1]:.3f} deg; "
+        f"bytes streamed {bytes_sent}, largest delta {max_delta}, map {merge.get('bytes')} bytes, {card}")
+    if set(rec["listed_clients"]) != {"1", "2"}:
+        raise AssertionError(f"two sessions: the operator lists {rec['listed_clients']}")
+    if not (merge.get("accepted") and merged_kf == n1 + n2 and merge.get("fused", 0) > 0):
+        raise AssertionError(f"two sessions: the merge was not accepted: {merge}, {merged_kf} keyframes")
+    if state_after_fetch != TrackState.LOST:
+        raise AssertionError(f"two sessions: session 2 is {state_after_fetch} after the fetch")
+    if merge_launches["masked_best_two"].get("server", 0) <= 0:
+        raise AssertionError(f"two sessions: masked_best_two was not launched on the server's thread: {merge_launches}")
+    if not center_rms <= bound:
+        raise AssertionError(f"two sessions: session 1's keyframes {center_rms:.4f} m from the truth > {bound:.4f}")
+    if state_after_revisit != TrackState.OK or s1_points < 20:
+        raise AssertionError(f"two sessions: session 2 is {state_after_revisit} after the revisit with {s1_points} "
+                             f"of session 1's points")
+    if reloc_kf is not None and not n2 <= reloc_kf < n2 + n1:
+        raise AssertionError(f"two sessions: relocalized on keyframe {reloc_kf}, not one of session 1's")
+    if not (reloc_err[0] <= RELOC_POSE_BOUND[0] and reloc_err[1] <= RELOC_POSE_BOUND[1]):
+        raise AssertionError(f"two sessions: the relocalized pose is {reloc_err} from the truth")
+    if rec["worker_errors"]:
+        raise AssertionError(f"two sessions: the stream's worker raised {rec['worker_errors']}")
+    return rec, merge_launches
 
 
 def drive_async(slam, frames, track, dt):
@@ -698,8 +1091,9 @@ def check_async(rec, launches, by_role, slam, fast_per_frame):
         raise AssertionError(f"{name}: fast_score_nms launched off the tracker thread: {by_role}")
 
 
-def run_online_async(imgs, deps, gt, cfg, card):
-    """Phase 11: bench.py's online leg (bench.py:120-165) on the card."""
+def run_online_async(imgs, deps, gt, cfg, card, check=True):
+    """Phase 11: bench.py's online leg (bench.py:120-165) on the card; with
+    check=False the record is returned without the phase's assertions."""
     import dataclasses
 
     import numpy as np
@@ -738,11 +1132,11 @@ def run_online_async(imgs, deps, gt, cfg, card):
                        reference_ate_first_frames_m=ONLINE_ASYNC_REF_PREFIX_ATE, reference_sync_ate_m=ONLINE_SYNC_REF_ATE,
                        lost_frames=[round(e.timestamp * ASYNC_FPS) for e in entries if e.lost],
                        decided_past_253=len(past), tracked_past_253=sum(past), relocalizations_at=relocs,
-                       closures=slam.loop_closer.closures)
+                       closures=slam.loop_closer.closures, losses=slam.losses)
     log(f"online async (bench.py's online leg): {rec['tracked']}/{n} tracked (lost: {rec['lost_frames']}), "
         f"{rec['tracked_past_253']}/{rec['decided_past_253']} past frame {REF_CRASH_FRAME}, {slam.n_kf_host} keyframes, "
         f"{slam.n_loops_closed} loops {slam.loop_closer.closures}, {slam.n_relocalized} relocalizations "
-        f"(frame, keyframe, its frame: {relocs}), {slam.n_resets} resets, "
+        f"(frame, keyframe, its frame: {relocs}), losses {slam.losses}, {slam.n_resets} resets, "
         f"ATE {ate:.4f} m (the reference's sync mode {ONLINE_SYNC_REF_ATE}), over frames 0-{ASYNC_PREFIX - 1} "
         f"{ate_prefix:.4f} m (bound {ONLINE_ASYNC_ATE_BOUND:.4f}), track ms p50 {rec['track_ms_p50']:.1f} "
         f"p90 {rec['track_ms_p90']:.1f} p99 {rec['track_ms_p99']:.1f} max {rec['track_ms_max']:.1f}, "
@@ -750,6 +1144,8 @@ def run_online_async(imgs, deps, gt, cfg, card):
         f"GBA runs {rec['gba_runs']} merged {rec['gba_merged']}, {rec['fps']:.2f} frames/s, "
         f"reads/frame tracker {rec['tracker_reads_per_frame']:.1f} workers {rec['worker_reads_per_frame']:.1f}, "
         f"launches {launches} by thread {by_role}, warmup {warm_s:.1f} s, shutdown {shut_s:.1f} s, {card}")
+    if not check:
+        return rec, launches, slam
     check_async(rec, launches, by_role, slam, 1)
     if rec["tracked"] < 0.9 * n:
         raise AssertionError(f"online async: tracked {rec['tracked']}/{n} < 90%")
@@ -1043,6 +1439,30 @@ def main():
     oa_rec, oa_launches, oa_slam = run_online_async(all_imgs, all_deps, all_gt, cfg, card)
     ka_rec, ka_launches = run_kitti_async(kcfg, card)
     oa_rec["save_load"] = run_save_load(oa_slam, all_imgs, all_deps, all_gt, card)
+    del oa_slam
+
+    # --- evaluate.py's adversarial legs, gated against their clean twins of this run ---
+    def norm(ps):
+        return [p @ np.linalg.inv(ps[0]) for p in ps]
+
+    rng21 = np.random.default_rng(21)
+    adv_scene = synthetic.make_adversarial(rng21)
+    adv_rgbd_rec, adv_rgbd_launches = run_adversarial(
+        "adv_clutter_rgbd", ecfg, Sensor.RGBD, adv_scene, norm(synthetic.desk_trajectory(DESK_FRAMES, extent=0.55)),
+        rng21, desk_rec["ate_m"], card)
+    adv_mono_rec, adv_mono_launches = run_adversarial(
+        "adv_mono", dataclasses.replace(ecfg, bf=0.0), Sensor.MONOCULAR,
+        synthetic.make_adversarial(np.random.default_rng(22), max_tilt_deg=35.0),
+        norm(synthetic.lateral_trajectory(MONO_FRAMES, extent=0.9)), np.random.default_rng(33), mono_rec["ate_m"],
+        card)
+    adv_st_rec, adv_st_launches = run_adversarial(
+        "adv_stereo_dolly", cfg, Sensor.STEREO, synthetic.make_room(np.random.default_rng(3)),
+        [synthetic.dolly_pose(i, *DOLLY_STEP) for i in range(DOLLY_FRAMES)], np.random.default_rng(43),
+        dolly_rec["ate_m"], card)
+
+    # --- the command-line runner on a written dataset, and two sessions on a map server ---
+    cli_rec, cli_launches = run_cli(ecfg, card)
+    server_rec, merge_launches = run_two_sessions(ecfg, card)
 
     if out_dir:
         profile(offline, imgs, deps, cfg, out_dir)
@@ -1063,16 +1483,20 @@ def main():
                                      "online_rgbd": online_launches[name], "stereo_dolly": dolly_launches[name],
                                      "stereo_kitti": kitti_launches[name], "clean_desk_rgbd": desk_launches[name],
                                      "clean_mono": mono_launches[name], "online_async": oa_launches[name],
-                                     "kitti_async": ka_launches[name]},
+                                     "kitti_async": ka_launches[name], "adv_clutter_rgbd": adv_rgbd_launches[name],
+                                     "adv_mono": adv_mono_launches[name], "adv_stereo_dolly": adv_st_launches[name],
+                                     "cli_run_slam": cli_launches[name],
+                                     "two_sessions": [r["launches"][name] for r in server_rec["sessions"]]},
                 "launches_by_thread": {"online_async": oa_rec["launches_by_thread"][name],
-                                       "kitti_async": ka_rec["launches_by_thread"][name]},
+                                       "kitti_async": ka_rec["launches_by_thread"][name],
+                                       "two_sessions_merge": merge_launches[name]},
                 "max_abs_err": res["max_abs_err"], "ms": res["ms"], "plain_ms": res["plain_ms"],
                 "bound_ms": res["bound_ms"], "bound_by": res["bound_by"], "library_ms": None,
                 "wrapper_ms": res["wrapper_ms"], "empty_launch_ms": floor_ms, "shapes": res["shapes"]}
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
-        "kernels": [entry("fast_score_nms", fast_res, "fast_score_nms.cu", 137),
+        "kernels": [entry("fast_score_nms", fast_res, "fast_score_nms.cu", 138),
                     entry("masked_best_two", match_res, "masked_best_two.cu", 225)],
         "main_path": {"frames": N_FRAMES, "tracked": n_ok, "keyframes": n_kf, "map_points": n_mp,
                       "ate_m": ate, "ate_anchored_m": ate_anchored, "wall_s": wall,
@@ -1085,6 +1509,11 @@ def main():
         "clean_mono": mono_rec,
         "online_async": oa_rec,
         "kitti_async": ka_rec,
+        "adv_clutter_rgbd": adv_rgbd_rec,
+        "adv_mono": adv_mono_rec,
+        "adv_stereo_dolly": adv_st_rec,
+        "cli_run_slam": cli_rec,
+        "two_sessions": server_rec,
     }, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

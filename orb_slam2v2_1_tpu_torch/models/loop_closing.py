@@ -745,6 +745,21 @@ class LoopCloser:
                 triggers.append((int(slot), *hit))
         return triggers
 
+    def detect_join(self, state: MapState, kf_before: int, kf_reloc: int):
+        """Sim3 of a candidate pair found by relocalization (see
+        `SlamSystem._join_after_relocalization`): the keyframe tracking was
+        lost from and the one it relocalized on. Returns S12 when both are
+        live, share no map point (covisibility 0) and the Sim3 is accepted,
+        else None. Read-only on `state`."""
+        valid, row = sync.host_numpy(state.kf_valid, state.covis[kf_before])
+        if not (valid[kf_before] and valid[kf_reloc]) or row[kf_reloc] > 0:
+            return None
+        success, S12, _, _ = compute_sim3(
+            state, kf_before, kf_reloc, self.K, self._generator(state.kf_pose.device, kf_before, kf_reloc),
+            fix_scale=self.fix_scale, voc=self.vocab,
+        )
+        return S12 if sync.host(success) else None
+
     def apply_closure(self, state: MapState, kf_id: int, cand: int, S12) -> MapState:
         """Mutating half (CorrectLoop): essential-graph correction, loop
         fusion over the full corrected group and all loop-side points,

@@ -25,14 +25,17 @@ Three modes, as in the reference:
   `pipeline_depth` frames later; `track_*` then returns the frame's pose as
   a tensor on the device.
 
-Not ported yet, each raising NotImplementedError: a `mesh` of more than one
-device and the map server (`connect_server`, `fetch_server_map`,
-`poll_server_push`).
+A session can stream its keyframes to a map server (`connect_server`,
+`parallel/stream.py`), load the server's map, merged with another session's
+if asked (`fetch_server_map`), and adopt a map the server's operator pushed
+(`poll_server_push`). Not ported yet, raising NotImplementedError: a `mesh`
+of more than one device.
 """
 
 from __future__ import annotations
 
 import enum
+import io
 import os
 import time as _time
 from collections import deque
@@ -162,6 +165,12 @@ class SlamSystem:
         # Relocalizations that succeeded (a frame tracked after loss through
         # the reference keyframe is not one).
         self.n_relocalized = 0
+        # Each frame declared lost: {"frame", "stats" (the decision vector),
+        # "ref_kf", "n_kf", "relocalized_on" (keyframe or None)}.
+        self.losses: list[dict] = []
+        # False while the map came from outside (load_map, a server map):
+        # the tracker's reference keyframe is then not where it lost track.
+        self._reloc_join = True
         self._pose_listeners = []
         # Pipelined tracking.
         self._pending: deque[_Pending] = deque()
@@ -181,6 +190,8 @@ class SlamSystem:
         # Rolling per-stage latency (ms), see stats(); "map" and "loop" are
         # timed inside the call in sync mode and on the workers in async mode.
         self._metrics = {"track": deque(maxlen=512), "map": deque(maxlen=128), "loop": deque(maxlen=128)}
+        self._stream = None  # the map server connection, see connect_server
+        self._sent_rows = self._sent_valid = None  # what the server holds of each keyframe row
         if self.async_mapping:
             self._start_async()
 
@@ -245,8 +256,14 @@ class SlamSystem:
             def loop_service_fn():
                 closer.service_gba(self._box)
 
+            def join_fn(snapshot, kf_before, kf_reloc):
+                S12 = closer.detect_join(snapshot, kf_before, kf_reloc)
+                if S12 is None:
+                    return None
+                return lambda state: closer.apply_closure(state, kf_before, kf_reloc, S12)
+
         self._mapper = AsyncMapper(self._box, mapping_fn, loop_fn=loop_fn, loop_service_fn=loop_service_fn,
-                                   device=self.device)
+                                   device=self.device, join_fn=join_fn if closer is not None else None)
 
     def _stop_async(self, drain: bool):
         """Stop the workers (after their queues drain unless drain=False),
@@ -288,17 +305,100 @@ class SlamSystem:
         """Decide the in-flight frames, stop the workers after draining their
         queues, finish a detached global BA and adopt the final map."""
         self.flush()
-        if self._mapper is not None:
-            self._stop_async(drain)
+        try:
+            if self._mapper is not None:
+                self._stop_async(drain)
+        finally:
+            if self._stream is not None:
+                stream, self._stream = self._stream, None
+                stream.close()
 
+    # ------------------------------------------------------------------
+    # Multi-session server connection (StreamThread / ReceiveMapCallback)
+    # ------------------------------------------------------------------
     def connect_server(self, host: str, port: int, client_id: int):
-        raise _not_ported("the map server connection")
+        """Stream this session's keyframes and points to a `MapServerNode`
+        (the SendClassToServer hookup, src/System.cc:141-143)."""
+        from ..parallel.stream import StreamClient
+
+        self._stream = StreamClient(host, port, client_id)
+        self._sent_rows = self._sent_valid = None
 
     def fetch_server_map(self, merge_with: int | None = None):
-        raise _not_ported("the map server connection")
+        """Load the server's map of this session, merged with session
+        `merge_with`'s if given (the CLIENT_MAP<cid> / ReceiveMapCallback
+        path, src/System.cc:1003-1066). Tracking then starts LOST and
+        relocalizes in it."""
+        self._adopt_map_bytes(self._stream.request_map(merge_with=merge_with))
 
     def poll_server_push(self) -> bool:
-        raise _not_ported("the map server connection")
+        """Adopt a map the server's operator pushed (Send,
+        src/ServerViewer.cc:132-137), if there is one; returns whether a map
+        was adopted. Called at keyframe cadence while connected."""
+        if self._stream is None:
+            return False
+        payload = self._stream.poll_push()
+        if payload is None:
+            return False
+        self._adopt_map_bytes(payload)
+        return True
+
+    def _adopt_map_bytes(self, payload: bytes):
+        """Swap in a serialized map and start LOST, as `load_map` does; the
+        BoW database is rebuilt from its keyframes."""
+        self.flush()
+        self._apply_redirects()
+        restart = self._halt_workers()
+        self.map, meta = serialization.load_map(io.BytesIO(payload), device=self.device)
+        self.ref_kf = int(meta.get("ref_kf", 0))
+        self.n_kf_host = int(meta.get("n_kf_host", sync.host(self.map.n_kf)))
+        self.state = TrackState.LOST
+        self._have_velocity = False
+        self._last_Tcw = None
+        self.last_frame = None
+        self._reloc_join = False
+        if self.vocab is not None:
+            self.loop_closer.db = serialization.rebuild_database(self.map, self.vocab, self.config.max_keyframes,
+                                                                 self.config.n_features)
+        if restart:
+            self._loops_seen = 0
+            self._start_async()
+
+    def _stream_keyframe(self):
+        """Send the new keyframe and the refined poses to the map server
+        (the Map::Add/UpdateKeyFrame forwarding, src/Map.cc:35-98), then take
+        an operator's push if one waits (the poll stands in for the
+        CLIENT_MAP<cid> subscription).
+
+        The reference sends the new keyframe only. Its server then keeps
+        every older keyframe's point associations as they were at insertion,
+        while mapping fuses and culls points and hands the freed slots to new
+        ones: an old row ends up naming other points, and a merge matches
+        against them (on the desk sweep most of an early keyframe's points,
+        1.7 m off at the median). So the port sends again, as INSERT deltas
+        of the reference's format, every live keyframe whose associations
+        changed since it was sent, and an ERASE for every sent keyframe
+        culled since; the new keyframe is one of the changed ones."""
+        if self._stream is None:
+            return
+        from ..parallel import server as delta_codec
+
+        st = self.map
+        if self._sent_rows is None:
+            self._sent_rows = torch.full_like(st.kf_mp, -2)
+            self._sent_valid = torch.zeros_like(st.kf_valid)
+        changed = st.kf_valid & torch.any(st.kf_mp != self._sent_rows, dim=1)
+        changed[self.ref_kf] |= st.kf_valid[self.ref_kf]
+        erased = self._sent_valid & ~st.kf_valid
+        changed, erased, valid = sync.host_numpy(changed, erased, st.kf_valid)
+        for k in np.where(changed)[0]:
+            self._stream.send_keyframe(st, int(k))
+        for k in np.where(erased)[0]:
+            self._stream.send_raw_delta(delta_codec.encode_keyframe_delta(st, int(k), delta_codec.ERASE))
+        self._sent_rows = st.kf_mp.clone()
+        self._sent_valid = st.kf_valid.clone()
+        self._stream.send_pose_update(st, np.where(valid)[0])
+        self.poll_server_push()
 
     # ------------------------------------------------------------------
     # Public per-frame entry points (System::TrackMonocular / TrackRGBD /
@@ -492,16 +592,19 @@ class SlamSystem:
         if not tracked_ok:
             self.trajectory.append_rel(e.timestamp, e.ref_kf, np.eye(4), lost=True)
             self._publish_pose(e.timestamp, None)
+            self._log_loss(e.frame_id, stats)
             # The sync loss policy: relocalize on this frame's features at
             # once, else the early reset or LOST.
             if self.loop_closer is not None:
                 ok_r, Tcw_r, frame_mp, ref = self._relocalize(e.res.frame, e.frame_id)
                 if ok_r:
+                    before = self.ref_kf
                     self.ref_kf = ref
                     self.last_frame = e.res.frame._replace(pose=Tcw_r, mp=frame_mp)
                     self._have_velocity = False
                     self._odom_skip_next = True
                     self._record(e.timestamp, Tcw_r)
+                    self._join_after_relocalization(before, ref)
                     return False  # flush the frames in flight; the chain is re-anchored
             self._sync_odom_from_device()
             if self.n_kf_host <= 5:
@@ -519,8 +622,17 @@ class SlamSystem:
             # Insert the newest tracked frame, not the decided one: the
             # reference's CreateNewKeyFrame uses mCurrentFrame
             # (src/Tracking.cc:1206); under the decision lag the newest view
-            # is what the map must cover to feed the next frames.
+            # is what the map must cover to feed the next frames. But only a
+            # frame known to be tracked: an in-flight frame whose tracking
+            # failed has no map-point associations and a doubtful pose, and as
+            # a keyframe it starts a part of the map joined to nothing, on
+            # which the next frames lose track or drift off (the reference
+            # inserts it all the same). So the newest frame's decision vector
+            # is read, waiting for it if it has not arrived, and the decided
+            # frame is inserted when the newest was not tracked.
             newest = self._pending[-1] if self._pending else e
+            if newest is not e and not newest.stats.numpy()[0] > 0:
+                newest = e
             self._insert_keyframe_async(newest.res, newest.ref_kf)
         return True
 
@@ -536,9 +648,44 @@ class SlamSystem:
         out = relocalization.relocalize(self.map, self.loop_closer.db, self.vocab, frame, self._K, self._bf,
                                         self.frame_id if frame_id is None else frame_id)
         self.n_relocalized += int(out[0])
+        if out[0] and self.losses and self.losses[-1]["relocalized_on"] is None:
+            self.losses[-1]["relocalized_on"] = int(out[3])
         return out
 
+    def _log_loss(self, frame_id: int, stats):
+        self.losses.append({"frame": int(frame_id), "stats": [float(x) for x in stats], "ref_kf": self.ref_kf,
+                            "n_kf": self.n_kf_host, "relocalized_on": None})
+
+    def _join_after_relocalization(self, kf_before: int, kf_reloc: int) -> bool:
+        """A relocalization onto a keyframe that shares no map point with
+        the keyframe tracking was lost from has joined two parts of the map
+        that no loop closure joined: on a revisit, the drifted second pass
+        and the first. Tracking then follows the first pass and builds
+        keyframes covisible with it, so loop detection, which skips
+        covisible candidates, never closes that loop, and the drift of the
+        second pass before the loss stays in the map and the trajectory.
+        The port closes it here: the two keyframes go to the loop closer as
+        a candidate pair (Sim3, then the correction and fusion of a loop).
+        The reference does not (its relocalization touches no map); this
+        departs from it on purpose. Returns whether a closure was made (sync
+        mode) or queued for the loop worker (async)."""
+        if not self._reloc_join or self.localization_only or self.loop_closer is None or kf_before == kf_reloc:
+            self._reloc_join = True
+            return False
+        if self._box is not None:
+            self._mapper.submit_join(kf_before, kf_reloc)
+            return True
+        S12 = self.loop_closer.detect_join(self.map, kf_before, kf_reloc)
+        if S12 is None:
+            return False
+        self.map = self.loop_closer.apply_closure(self.map, kf_before, kf_reloc, S12)
+        self.n_loops_closed += 1
+        self._have_velocity = False
+        self._last_Tcw = None
+        return True
+
     def _accept_relocalization(self, res, timestamp, Tcw_r, frame_mp, ref):
+        before = self.ref_kf
         self.state = TrackState.OK
         self.ref_kf = ref
         self.last_frame = res.frame._replace(pose=Tcw_r, mp=frame_mp)
@@ -550,6 +697,7 @@ class SlamSystem:
         self.frame_id += 1
         out = self._record(timestamp, Tcw_r)
         self._update_odom(out)
+        self._join_after_relocalization(before, ref)
         return out
 
     def _handle_result_impl(self, res: frontend.FrameResult, timestamp: float):
@@ -596,6 +744,8 @@ class SlamSystem:
             self._vo_mode = False
 
         if not tracked_ok:
+            if self.state == TrackState.OK:
+                self._log_loss(self.frame_id, stats)
             # Relocalization attempt (Tracking::Relocalization on LOST,
             # src/Tracking.cc:429,1486).
             if self.loop_closer is not None:
@@ -902,6 +1052,7 @@ class SlamSystem:
         self.n_kf_host += 1
         self.last_kf_frame = self.frame_id
         self._apply_cull(int(v), int(p), T)
+        self._stream_keyframe()
 
     def _insert_keyframe_async(self, res: frontend.FrameResult, ref_kf: int):
         """Tracking-side keyframe creation: the structural append, then the
@@ -934,6 +1085,7 @@ class SlamSystem:
         self.n_kf_host += 1
         self.last_kf_frame = self.frame_id
         self._mapper.submit_keyframe(self.ref_kf)
+        self._stream_keyframe()
 
     def _apply_cull(self, victim: int, parent: int, T_redirect):
         """Host bookkeeping for an erased keyframe: rewrite trajectory
@@ -1040,6 +1192,7 @@ class SlamSystem:
         self._have_velocity = False
         self._last_Tcw = None
         self.last_frame = None
+        self._reloc_join = False
         if self.vocab is not None:
             self.loop_closer.db = serialization.rebuild_database(self.map, self.vocab, self.config.max_keyframes,
                                                                  self.config.n_features)

@@ -1,7 +1,7 @@
 """Image pyramid + Gaussian kernel.
 
 Port of the JAX package's `ops/image.py` (`pyramid_shapes`, `build_pyramid`,
-`_gauss_kernel`), and `gather_windows`, the batched `lax.dynamic_slice` that
+`_gauss_kernel`, `gaussian_blur`, `rgb_to_gray`), and `gather_windows`, the batched `lax.dynamic_slice` that
 ORB patches and the stereo SAD windows are cut with. Every level is resized from the base image, as in the
 reference. The reference resizes with `jax.image.resize(..., "bilinear")`,
 which for a downscale is an antialiased triangle filter whose width grows
@@ -65,6 +65,25 @@ def _gauss_kernel(size: int, sigma: float, device=None) -> torch.Tensor:
     x = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
     k = torch.exp(-0.5 * (x / sigma) ** 2)
     return k / torch.sum(k)
+
+
+def gaussian_blur(img: torch.Tensor, size: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur of a float32 image (H, W) with reflect padding
+    (cv::GaussianBlur's BORDER_REFLECT_101): a horizontal, then a vertical
+    1-D convolution. TF32 is off package-wide, so the convs run in float32."""
+    k = _gauss_kernel(size, sigma, device=img.device)
+    pad = size // 2
+    x = torch.nn.functional.pad(img[None, None], (pad, pad, pad, pad), mode="reflect")
+    x = torch.nn.functional.conv2d(x, k[None, None, None, :])
+    x = torch.nn.functional.conv2d(x, k[None, None, :, None])
+    return x[0, 0]
+
+
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) uint8 or float -> (H, W) float32 gray with the cv::cvtColor
+    weights in RGB order (Tracking::GrabImage*)."""
+    img = img.to(torch.float32)
+    return img[..., 0] * 0.299 + img[..., 1] * 0.587 + img[..., 2] * 0.114
 
 
 def gather_windows(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, h: int, w: int) -> torch.Tensor:

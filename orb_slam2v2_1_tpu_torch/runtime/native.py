@@ -4,8 +4,8 @@ The port's own loader of the C++ source the JAX package also uses: bounded
 byte-message queues, atomic flags and worker threads that wait on a queue in
 native code with the GIL released, so the mapping and loop-closing workers
 overlap the tracking thread (the reference's std::thread pipeline,
-src/System.cc:124-143). The TCP transport of the same source is not bound
-here yet (it serves the map server).
+src/System.cc:124-143), and the length-prefixed TCP transport the map
+server streams over (`TcpServer`, `TcpConn`, `TcpClient`).
 
 The library is built at first use with g++ into `build/torch_runtime/` at the
 repository root, under a name keyed on the source's content, through a temp
@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import socket
 import subprocess
 import tempfile
 import threading
@@ -91,6 +92,13 @@ def _declare(lib) -> None:
     for name in ("rtw_join", "rtw_free"):
         getattr(lib, name).restype = None
         getattr(lib, name).argtypes = [P]
+    for name, args in (("rt_listen", [I]), ("rt_port", [I]), ("rt_accept", [I, I]),
+                       ("rt_connect", [ctypes.c_char_p, I]), ("rt_send_msg", [I, ctypes.c_char_p, I]),
+                       ("rt_recv_msg", [I, ctypes.c_char_p, I, I])):
+        getattr(lib, name).restype = I
+        getattr(lib, name).argtypes = args
+    lib.rt_close_fd.restype = None
+    lib.rt_close_fd.argtypes = [I]
 
 
 def load():
@@ -224,3 +232,85 @@ class NativeWorker:
         if self._w:
             self._lib.rtw_free(self._w)
             self._w = None
+
+
+class TcpServer:
+    """A listening socket for length-prefixed messages (port 0: any free
+    port, read back in `port`)."""
+
+    def __init__(self, port: int = 0):
+        self._lib = load()
+        self._fd = self._lib.rt_listen(port)
+        if self._fd < 0:
+            raise OSError(f"rt_listen({port}) failed")
+        self.port = self._lib.rt_port(self._fd)
+
+    def accept(self, timeout_ms: int = 5000):
+        """The next connection; TimeoutError when none came in time."""
+        fd = self._lib.rt_accept(self._fd, timeout_ms)
+        if fd < 0:
+            raise TimeoutError("rt_accept timed out")
+        return TcpConn(self._lib, fd)
+
+    def close(self):
+        if self._fd >= 0:
+            self._lib.rt_close_fd(self._fd)
+            self._fd = -1
+
+
+class TcpConn:
+    """One connection: whole messages, a u32-LE length prefix each.
+
+    `rt_recv_msg` answers -1 both when the wait timed out and when the peer
+    closed the connection; a non-blocking peek on a duplicate of the socket
+    tells the two apart, so a closed peer raises OSError (ending a server's
+    reader) and only a quiet one raises TimeoutError. The receive buffer is
+    kept between calls and grown to the largest `max_len` asked for."""
+
+    def __init__(self, lib_, fd: int):
+        self._lib = lib_
+        self._fd = fd
+        self._peek = socket.socket(fileno=os.dup(fd))
+        self._buf = None
+
+    def send(self, msg: bytes):
+        if self._lib.rt_send_msg(self._fd, msg, len(msg)) < 0:
+            raise OSError("rt_send_msg failed")
+
+    def _closed_by_peer(self) -> bool:
+        try:
+            return self._peek.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT) == b""
+        except BlockingIOError:
+            return False
+        except OSError:
+            return True
+
+    def recv(self, timeout_ms: int = 5000, max_len: int = 1 << 24) -> bytes:
+        """The next message, at most max_len bytes (OSError if longer)."""
+        if self._buf is None or len(self._buf) < max_len:
+            self._buf = ctypes.create_string_buffer(max_len)
+        n = self._lib.rt_recv_msg(self._fd, self._buf, max_len, timeout_ms)
+        if n == -1:
+            if self._closed_by_peer():
+                raise OSError("connection closed by the peer")
+            raise TimeoutError("rt_recv_msg timed out")
+        if n == -3:
+            raise OSError("message larger than max_len")
+        return self._buf.raw[:n]
+
+    def close(self):
+        if self._fd >= 0:
+            self._peek.close()
+            self._lib.rt_close_fd(self._fd)
+            self._fd = -1
+
+
+class TcpClient(TcpConn):
+    """A connection to `host:port` (OSError when refused)."""
+
+    def __init__(self, host: str, port: int):
+        lib_ = load()
+        fd = lib_.rt_connect(host.encode(), port)
+        if fd < 0:
+            raise OSError(f"rt_connect({host}, {port}) failed")
+        super().__init__(lib_, fd)

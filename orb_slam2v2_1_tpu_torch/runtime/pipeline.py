@@ -101,13 +101,16 @@ class AsyncMapper:
       under the structural lock.
     loop_service_fn(), optional: after each loop round, outside the lock (the
       detached global BA's start / abort / merge).
+    join_fn(snapshot, kf_before, kf_reloc), optional: like loop_fn for a
+      candidate pair the tracker found by relocalization (`submit_join`).
 
     `device`: the CUDA device the workers launch on (None: no device
     context, as on the CPU)."""
 
     def __init__(self, box: MapBox, mapping_fn, loop_fn=None, queue_cap: int = 32,
-                 loop_service_fn=None, device=None):
+                 loop_service_fn=None, device=None, join_fn=None):
         self.box = box
+        self._join_fn = join_fn
         self._mapping_fn = mapping_fn
         self._loop_fn = loop_fn
         self._loop_service_fn = loop_service_fn
@@ -148,6 +151,16 @@ class AsyncMapper:
             self.raise_worker_errors()
         self.n_submitted += 1
 
+    def submit_join(self, kf_before: int, kf_reloc: int):
+        """Queue a loop round on a candidate pair for the loop worker, behind
+        the rounds already queued."""
+        if self.loop_q is None or self._join_fn is None:
+            return
+        self.raise_worker_errors()
+        msg = struct.pack("<ii", kf_before, kf_reloc)
+        while not self.loop_q.push(msg, timeout_ms=_PUSH_POLL_MS):
+            self.raise_worker_errors()
+
     # -- worker side --------------------------------------------------------
     def _map_step(self, msg: bytes):
         (kf_id,) = struct.unpack("<i", msg)
@@ -167,6 +180,15 @@ class AsyncMapper:
                     break
 
     def _loop_step(self, msg: bytes):
+        if len(msg) == 8:  # a pair from submit_join
+            snapshot, _ = self.box.read()
+            apply_fn = self._join_fn(snapshot, *struct.unpack("<ii", msg))
+            if apply_fn is not None:
+                self.box.mutate(apply_fn)
+                self.n_loops += 1
+            if self._loop_service_fn is not None:
+                self._loop_service_fn()
+            return
         (kf_id,) = struct.unpack("<i", msg)
         # Detection only reads the map (BoW registration changes only the
         # loop closer's own database): run it on a snapshot outside the

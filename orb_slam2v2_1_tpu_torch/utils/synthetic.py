@@ -9,8 +9,11 @@ yaw orbit in the room's first six planes. `stereo_dolly_frames` renders the
 rectified pairs of a sideways-and-forward dolly through the whole room
 (evaluate.py's `stereo_dolly`, bench.py's KITTI leg). `make_desk`,
 `desk_trajectory` and `lateral_trajectory` give evaluate.py's desk sequences
-(`clean_desk_rgbd`, `clean_mono`); `desk_frames` renders them. The
-adversarial scenes and the photometric degradations are not ported yet.
+(`clean_desk_rgbd`, `clean_mono`); `desk_frames` renders them.
+`make_adversarial`, `degrade_frame` and `exposure_schedule` are the
+adversarial scenes and the photometric degradations of evaluate.py's
+`adv_*` legs; `adversarial_frames` renders those legs' sequences with
+evaluate.py's random-number order.
 """
 
 from __future__ import annotations
@@ -98,6 +101,95 @@ def make_desk(rng: np.random.Generator, tex_size: int = 512, device=None) -> Pla
     return PlaneScene(*(torch.from_numpy(a).to(device) for a in (o, u, v, tex)))
 
 
+def make_adversarial(rng: np.random.Generator, tex_size: int = 512, n_clutter: int = 28,
+                     low_texture_frac: float = 0.35, max_tilt_deg: float | None = None,
+                     device=None) -> PlaneScene:
+    """Adversarial close-range scene on `device` (None: the card): a back
+    wall, a desk plane and `n_clutter` randomly oriented, overlapping planes
+    (real z-buffer occlusion), with `low_texture_frac` of all surfaces near
+    uniform (~6 gray levels). `max_tilt_deg` bounds the clutter normals'
+    angle from the camera axis (None: any orientation); the monocular leg
+    uses 35 deg, since two-view bootstrapping needs mostly camera-facing
+    texture. The draws are the reference's, in its order."""
+    device = device_mod.resolve(device)
+    planes = [
+        ([-3.0, -2.0, 4.0], [6.0, 0.0, 0.0], [0.0, 4.0, 0.0]),  # back wall
+        ([-3.0, 1.2, 0.5], [6.0, 0.0, 0.0], [0.0, 0.3, 3.5]),  # floor/desk
+    ]
+    for _ in range(n_clutter):
+        c = np.array([rng.uniform(-2.2, 2.2), rng.uniform(-1.4, 1.0), rng.uniform(1.2, 3.5)])
+        if max_tilt_deg is None:
+            qq, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        else:
+            tilt = np.deg2rad(rng.uniform(0.0, max_tilt_deg))
+            azim = rng.uniform(0, 2 * np.pi)
+            n = np.array([np.sin(tilt) * np.cos(azim), np.sin(tilt) * np.sin(azim), -np.cos(tilt)])
+            roll = rng.uniform(0, 2 * np.pi)
+            a = np.cross(n, [0.0, 1.0, 0.0])
+            a /= max(np.linalg.norm(a), 1e-9)
+            b = np.cross(n, a)
+            qq = np.stack([np.cos(roll) * a + np.sin(roll) * b, -np.sin(roll) * a + np.cos(roll) * b, n], axis=1)
+        w, h = rng.uniform(0.3, 0.9, 2)
+        ux = qq[:, 0] * w
+        vy = qq[:, 1] * h
+        planes.append((c - ux / 2 - vy / 2, ux, vy))
+    tex = []
+    for _ in planes:
+        t = blob_texture(rng, tex_size)
+        if rng.uniform() < low_texture_frac:
+            t = 120.0 + (t - t.mean()) * 0.025  # ~6 gray levels of contrast
+        tex.append(t)
+    o, u, v = (np.asarray([np.asarray(p[i], np.float32) for p in planes]) for i in range(3))
+    tex = np.stack(tex).astype(np.float32)
+    return PlaneScene(*(torch.from_numpy(a).to(device) for a in (o, u, v, tex)))
+
+
+def _motion_blur(img: torch.Tensor, direction, length: int) -> torch.Tensor:
+    """Directional box blur: the mean of `length` copies of img rolled by
+    whole pixels along `direction` (dy, dx). The offsets are rounded in
+    float32 on the host, half to even, as the reference's `jnp.round`; the
+    mean is the reference's to the bit: a sum in tap order times 1/length."""
+    taps = np.arange(length, dtype=np.float32) - np.float32((length - 1) / 2.0)
+    offs = np.round(taps[:, None] * np.asarray(direction, np.float32)[None, :]).astype(np.int64)
+    acc = None
+    for dy, dx in offs:
+        tap = torch.roll(img, (int(dy), int(dx)), (0, 1))
+        acc = tap if acc is None else acc + tap
+    return acc * (1.0 / length)
+
+
+def degrade_frame(img: torch.Tensor, rng: np.random.Generator, gain: float = 1.0, blur_dir=None,
+                  blur_len: int = 0, noise_sigma: float = 0.0) -> torch.Tensor:
+    """The camera's photometric degradation of a rendered float32 image, on
+    its device: motion blur, exposure gain, sensor noise drawn from `rng`
+    (float64 on the host, cast to float32), then rounding and 8-bit
+    saturation."""
+    out = img
+    if blur_len >= 2 and blur_dir is not None:
+        out = _motion_blur(out, blur_dir, int(blur_len))
+    out = out * gain
+    if noise_sigma > 0:
+        noise = rng.standard_normal(tuple(img.shape)) * noise_sigma
+        out = out + torch.from_numpy(noise.astype(np.float32)).to(img.device)
+    return torch.clamp(torch.round(out), 0.0, 255.0)
+
+
+def exposure_schedule(n_frames: int, rng: np.random.Generator, n_steps: int = 4, lo: float = 0.55,
+                      hi: float = 1.7) -> np.ndarray:
+    """Piecewise-constant gain (n_frames,) float32 with `n_steps` abrupt
+    steps (auto-exposure jumps)."""
+    gains = np.ones(n_frames, np.float32)
+    cuts = sorted(rng.choice(np.arange(5, n_frames - 1), n_steps, replace=False))
+    g = 1.0
+    prev = 0
+    for c in cuts:
+        gains[prev:c] = g
+        g = float(rng.uniform(lo, hi))
+        prev = c
+    gains[prev:] = g
+    return gains
+
+
 def _tcw_of(xi: np.ndarray) -> np.ndarray:
     """World->camera pose of the camera whose Twc = se3_exp(xi)."""
     Twc = lie.se3_exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
@@ -148,6 +240,57 @@ def desk_frames(cfg, poses, device=None):
         imgs.append(img)
         deps.append(depth)
     return torch.stack(imgs), torch.stack(deps), gt
+
+
+def flow_blur(poses, i: int, cfg, depth: float = 2.2):
+    """evaluate.py's `_flow_blur`: the direction (dy, dx) and length in
+    pixels (at most 9) of the image motion at the central pixel between
+    frames i-1 and i, or (None, 0) below one pixel or at frame 0."""
+    if i == 0:
+        return None, 0
+    rel = poses[i] @ np.linalg.inv(poses[i - 1])
+    dx = cfg.fx * (rel[0, 3] / depth - rel[0, 2])
+    dy = cfg.fy * (rel[1, 3] / depth - rel[1, 2])
+    mag = float(np.hypot(dx, dy))
+    if mag < 1.0:
+        return None, 0
+    d = np.array([dy, dx], np.float32) / max(np.hypot(dx, dy), 1e-6)
+    return d, int(min(mag, 9))
+
+
+# evaluate.py's degradation per sensor (`synth_rgbd`, `synth_mono`,
+# `synth_stereo`): (blur, noise sigma, exposure range).
+ADVERSARIAL_MODES = {
+    "rgbd": (True, 3.0, (0.55, 1.7)),
+    "mono": (False, 2.0, (0.7, 1.45)),
+    "stereo": (True, 3.0, (0.55, 1.7)),
+}
+
+
+def adversarial_frames(cfg, scene: PlaneScene, poses, rng: np.random.Generator, mode: str):
+    """evaluate.py's degraded sequence of `mode` ("rgbd", "mono", "stereo")
+    through `scene` along `poses` (Tcw, already relative to the first), on
+    the scene's device. One generator is threaded through the exposure
+    schedule and then each frame's noise, left eye before right for stereo,
+    as evaluate.py's `synth_*` draw it. Returns (images (n,H,W), second
+    (n,H,W): the depths, None for mono, the right eyes for stereo)."""
+    blur, sigma, (lo, hi) = ADVERSARIAL_MODES[mode]
+    dev = scene.tex.device
+    K = torch.tensor(cfg.K, dtype=torch.float32, device=dev)
+    gains = exposure_schedule(len(poses), rng, lo=lo, hi=hi)
+    imgs, second = [], []
+    for i, Tcw in enumerate(poses):
+        img, depth = render(scene, torch.from_numpy(np.asarray(Tcw, np.float32)).to(dev), K, cfg.width, cfg.height)
+        bd, bl = flow_blur(poses, i, cfg) if blur else (None, 0)
+        imgs.append(degrade_frame(img, rng, float(gains[i]), bd, bl, sigma))
+        if mode == "stereo":
+            Tr = np.array(Tcw)  # shifted in the poses' own precision, as evaluate.py does
+            Tr[0, 3] -= cfg.bf / cfg.fx
+            right, _ = render(scene, torch.from_numpy(Tr.astype(np.float32)).to(dev), K, cfg.width, cfg.height)
+            second.append(degrade_frame(right, rng, float(gains[i]), bd, bl, sigma))
+        elif mode == "rgbd":
+            second.append(depth)
+    return torch.stack(imgs), (torch.stack(second) if second else None)
 
 
 def render(scene: PlaneScene, Tcw: torch.Tensor, K: torch.Tensor, width: int, height: int):

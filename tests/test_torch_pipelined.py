@@ -4,7 +4,10 @@
   sequence of decision vectors through both packages' `_drain_pending` /
   `_process_pending` with a window of 4 frames (close-decay anticipation,
   keyframe triggers under lag, the transient-dip grace budget, loss, a loop
-  closed in the background, the device-side odometry chain), and
+  closed in the background, the device-side odometry chain); the keyframes
+  the same frames, except that where the reference makes a keyframe of an
+  in-flight frame whose tracking failed, the port makes it of the frame it
+  is deciding; and
   `_need_new_keyframe_stats(stats, frame_id, lag)` and `_update_health` on a
   grid of inputs. The workers, the box and the keyframe insertion are
   stand-ins, so only the host logic runs.
@@ -112,11 +115,19 @@ def _drive(slam, make_pending, rows, loop_at):
     def insert(frame_or_res, *ref_kf):
         # The reference passes the frame (here its tag), the port the
         # frame's result and its reference keyframe.
-        inserted.append((slam.frame_id, getattr(frame_or_res, "frame", frame_or_res)))
+        inserted.append((slam.frame_id, getattr(frame_or_res, "frame", frame_or_res), deciding[-1]))
         slam.last_kf_frame = slam.frame_id
 
     slam._insert_keyframe_async = insert
     slam.reset = lambda: resets.append(slam.frame_id)
+    process = slam._process_pending
+
+    def process_logged(e):
+        deciding.append(e.frame_id)
+        return process(e)
+
+    deciding = []
+    slam._process_pending = process_logged
     log = []
     for k, row in enumerate(rows):
         if k == loop_at:
@@ -130,9 +141,17 @@ def _drive(slam, make_pending, rows, loop_at):
     return log, inserted, resets, [e.lost for e in slam.trajectory.entries]
 
 
-def test_pipelined_decisions_parity():
+@pytest.mark.parametrize("untracked_newest", [False, True])
+def test_pipelined_decisions_parity(untracked_newest):
+    """With `untracked_newest`, the frames in flight at the first two
+    keyframe triggers (frames 4 and 10, the newest when frames 0 and 6 are
+    decided) are dips: the reference makes keyframes of them, the port of
+    the decided frames."""
     rng = np.random.default_rng(5)
     rows = _stats_sequence(rng)
+    if untracked_newest:
+        for k in (4, 10):
+            rows[k] = [0.0, 20.0, 40.0] + rows[k][3:7] + [20.0, 20.0]
     vel, pose = _poses(rng, len(rows)), _poses(rng, len(rows))
 
     def jpending(k, row):
@@ -148,7 +167,13 @@ def test_pipelined_decisions_parity():
     ref = _drive(jslam, jpending, rows, loop_at=30)
     got = _drive(tslam, tpending, rows, loop_at=30)
     assert got[0] == ref[0]
-    assert got[1] == ref[1] and len(got[1]) >= 3
+    # The same insertions at the same moments, of the same frame, except
+    # where the reference inserts an in-flight frame whose tracking failed:
+    # the port inserts the frame it was deciding instead.
+    untracked = [(at, newest) for at, newest, _ in ref[1] if rows[newest][0] == 0]
+    expected = [(at, newest if rows[newest][0] > 0 else decided, decided) for at, newest, decided in ref[1]]
+    assert got[1] == expected and len(got[1]) >= 3
+    assert [newest for _, newest in untracked] == ([4, 10] if untracked_newest else [])
     assert got[2] == ref[2] and got[3] == ref[3]
     log = got[0]
     assert any(r[1] == 1 for r in log) and any(not r[3] for r in log) and any(r[0] == 4 for r in log)

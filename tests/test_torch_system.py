@@ -302,15 +302,34 @@ def test_unported_modes_raise(kwargs, match):
 
 
 def test_unported_methods_raise_and_pipelined_needs_async(tmp_path):
-    """The map server still raises; `save_map`, `load_map` and `warmup`
-    run (ported since)."""
+    """A mesh of more than one device still raises. The map server calls run
+    (ported since): connect, stream the initial keyframe, fetch it back and
+    start LOST in it. `save_map`, `load_map` and `warmup` run."""
+    from orb_slam2v2_1_tpu_torch.parallel.stream import MapServerNode
+
     with pytest.raises(ValueError, match="async_mapping"):
         system.SlamSystem(config=config.SlamConfig(**KW), sensor=system.Sensor.RGBD, pipelined=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        system.SlamSystem(config=config.SlamConfig(**KW), sensor=system.Sensor.RGBD, mesh=["cpu", "cpu"],
+                          device="cpu")
+    cfg = config.SlamConfig(**KW)
+    imgs, deps, _ = synthetic.orbit_frames(cfg, 1, device="cpu", total=321)
+    node = MapServerNode(port=0, max_kf=cfg.max_keyframes, max_mp=cfg.max_map_points, n_kp=cfg.n_features,
+                         device="cpu")
+    slam = system.SlamSystem(config=cfg, sensor=system.Sensor.RGBD, device="cpu")
+    try:
+        slam.connect_server("127.0.0.1", node.port, 4)
+        assert slam.poll_server_push() is False
+        assert slam.track_rgbd(imgs[0], deps[0], 0.0) is not None  # initializes the map
+        slam._stream_keyframe()
+        slam.fetch_server_map()
+        assert slam.state == system.TrackState.LOST and slam.n_kf_host == 1
+        np.testing.assert_allclose(slam.map.kf_pose[0].numpy(), node.server.client_map(4).kf_pose[0].numpy())
+        assert node.n_deltas == 2  # the keyframe and its pose update
+    finally:
+        slam.shutdown()
+        node.stop()
     slam = system.SlamSystem(config=config.SlamConfig(**KW), sensor=system.Sensor.RGBD, device="cpu")
-    for call in (lambda: slam.connect_server("localhost", 1, 0), lambda: slam.fetch_server_map(),
-                 lambda: slam.poll_server_push()):
-        with pytest.raises(NotImplementedError):
-            call()
     slam.warmup(gba_buckets=(16,))
     slam.save_map(tmp_path / "empty.npz")
     slam.load_map(tmp_path / "empty.npz")
