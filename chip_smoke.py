@@ -70,7 +70,9 @@ Phases, each of which raises (exit code != 0) on failure:
      (where the reference's run of this mode crashed on the TPU) decided, at
      least one loop closed, finite poses, the ATE over the first 240 frames
      within twice the reference's largest in this mode there (its runs of
-     this mode fail after 250-284 frames), no worker exception, no
+     this mode fail after 250-284 frames) and over all 321 frames within
+     twice the reference's sync mode on them (2 x 0.2746 m), no worker
+     exception, no
      global-BA thread alive after `shutdown`, nothing in flight after
      `flush`, and kernel 2 launched from the mapping worker's thread. One
      line: per-call latency p50/p90/p99/max, `map_ms_p50`, frames/s, host
@@ -119,6 +121,22 @@ Phases, each of which raises (exit code != 0) on failure:
      at least 20 of session 1's points; a relocalization, if it took one, on
      a keyframe of session 1), the first pose within 0.10 m and 5 deg of the
      truth; no exception on either stream's worker.
+ 19. the bundle adjustment sharded over a device mesh (`parallel/dist_ba.py`),
+     on meshes of virtual shards of the one card: (a) the JAX package's
+     production-scale problem (128 keyframes, 16384 points, 65536 stereo
+     observations, seed 0) through the full LM schedule (cg_iters=24) on 1,
+     2 and 4 shards and through a world-size-1 NCCL group: every final cost
+     within 1% of `ops.ba.bundle_adjust`'s on the card, finite, the NCCL run
+     equal to its in-process twin; ms per 3-iteration LM chunk by mesh size
+     and on one device; (b) phase 11's configuration in sync mode with its
+     loop closer over all 321 orbit frames through `SlamSystem(mesh=4
+     shards)`: at least 90% tracked, a loop closed, ATE within twice the
+     reference's sync mode (0.2746 m), every local BA round and every inline
+     global BA through the mesh; (c) the detached global-BA runner on 4
+     shards on (b)'s final map: no abort, the merged map's cost within 1% of
+     the single-device runner's on the same snapshot; (d) clean_desk_rgbd in
+     async mode on 2 shards: 150/150 tracked, ATE within evaluate.py's gate,
+     the mapping worker's windows solved on the mesh.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -199,6 +217,10 @@ ASYNC_PREFIX = 240
 ONLINE_ASYNC_REF_PREFIX_ATE = 0.2862  # its three runs: 0.2862, 0.2503, 0.2558 (failed after 266, 284, 250 frames)
 ONLINE_ASYNC_ATE_BOUND = 2 * ONLINE_ASYNC_REF_PREFIX_ATE
 ONLINE_SYNC_REF_ATE = 0.2746
+# Over all 321 frames phase 11 is held to twice the reference's sync mode on
+# them: the port's run of this mode goes on past the frames where the
+# reference's fails, and its last segment must stay on the orbit.
+ONLINE_ASYNC_FULL_ATE_BOUND = 2 * ONLINE_SYNC_REF_ATE
 # Phase 13: the loaded map must relocalize as the live one does. Every
 # RELOC_PROBE_STEP-th orbit frame is relocalized (`relocalization.relocalize`,
 # the tracker's own call) in phase 11's live map and in the loaded one, each
@@ -254,6 +276,30 @@ CLI_REF_ATE = 0.0056
 # relocalization.
 SESSION_1, SESSION_2, REVISIT = (0, 70), (50, 120), (20, 23)
 SERVER_REF_CENTER_RMS = 0.01654
+# Phase 19: the bundle adjustment sharded over a mesh of virtual shards of
+# the one card. (a) The JAX package's production-scale problem
+# (`__graft_entry__.py`: C=128 keyframes, P=16384 points, O=65536 stereo
+# observations, seed 0; `utils.synthetic.ba_problem` draws it) through the
+# full LM schedule with cg_iters=24 on meshes of MESH_SHARDS shards and once
+# through a world-size-1 NCCL group; each final cost within GBA_COST_REL of
+# `ops.ba.bundle_adjust` on the card (the reference's own bound,
+# `__graft_entry__.py:96-100`), the NCCL run equal to its in-process twin.
+# (b) phase 11's configuration in sync mode with its loop closer over all 321
+# orbit frames through `SlamSystem(mesh=[card] * MESH_SYNC_SHARDS)`: every
+# local BA round and every inline global BA through the mesh, phase 11's
+# tracked share and loop floor, the ATE within twice the reference's sync
+# mode on the same frames. (c) the detached runner on a mesh of the same
+# size on (b)'s final map: no abort, the merged map's cost within
+# GBA_COST_REL of the single-device runner's on the same snapshot. (d)
+# phase 9's clean_desk_rgbd in async mode on a mesh of MESH_ASYNC_SHARDS
+# shards: 150/150 tracked, ATE within evaluate.py's gate, the mapping worker's
+# windows solved through the mesh.
+MESH_SHARDS = (1, 2, 4)
+GBA_PROBLEM = (128, 16384, 65536)
+GBA_CG_ITERS, GBA_COST_REL, CHUNK_REPEATS = 24, 0.01, 3
+MESH_SYNC_SHARDS, MESH_ASYNC_SHARDS = 4, 2
+MESH_DEVICE, GROUP_BACKEND = "cuda:0", "nccl"  # a rehearsal on the CPU sets "cpu" and "gloo"
+MESH_SYNC_ATE_BOUND = 2 * ONLINE_SYNC_REF_ATE
 
 
 def log(*a):
@@ -1130,6 +1176,7 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
     rec = async_record(slam, "online_async", n, lat, wall, st, shut_s, launches, by_role, reads, ate, warm_s, card,
                        **{f"ate_first_{ASYNC_PREFIX}_m": ate_prefix}, ate_first_frames_bound_m=ONLINE_ASYNC_ATE_BOUND,
                        reference_ate_first_frames_m=ONLINE_ASYNC_REF_PREFIX_ATE, reference_sync_ate_m=ONLINE_SYNC_REF_ATE,
+                       ate_bound_m=ONLINE_ASYNC_FULL_ATE_BOUND,
                        lost_frames=[round(e.timestamp * ASYNC_FPS) for e in entries if e.lost],
                        decided_past_253=len(past), tracked_past_253=sum(past), relocalizations_at=relocs,
                        closures=slam.loop_closer.closures, losses=slam.losses)
@@ -1137,7 +1184,7 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
         f"{rec['tracked_past_253']}/{rec['decided_past_253']} past frame {REF_CRASH_FRAME}, {slam.n_kf_host} keyframes, "
         f"{slam.n_loops_closed} loops {slam.loop_closer.closures}, {slam.n_relocalized} relocalizations "
         f"(frame, keyframe, its frame: {relocs}), losses {slam.losses}, {slam.n_resets} resets, "
-        f"ATE {ate:.4f} m (the reference's sync mode {ONLINE_SYNC_REF_ATE}), over frames 0-{ASYNC_PREFIX - 1} "
+        f"ATE {ate:.4f} m (bound {ONLINE_ASYNC_FULL_ATE_BOUND:.4f}, twice the reference's sync mode), over frames 0-{ASYNC_PREFIX - 1} "
         f"{ate_prefix:.4f} m (bound {ONLINE_ASYNC_ATE_BOUND:.4f}), track ms p50 {rec['track_ms_p50']:.1f} "
         f"p90 {rec['track_ms_p90']:.1f} p99 {rec['track_ms_p99']:.1f} max {rec['track_ms_max']:.1f}, "
         f"map ms p50 {rec['map_ms_p50']}, loop ms p50 {rec['loop_ms_p50']}, BA skipped {rec['ba_skipped']}, "
@@ -1157,6 +1204,8 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
     if not ate_prefix <= ONLINE_ASYNC_ATE_BOUND:
         raise AssertionError(f"online async: ATE over frames 0-{ASYNC_PREFIX - 1} {ate_prefix:.4f} m > "
                              f"{ONLINE_ASYNC_ATE_BOUND:.4f} m")
+    if not ate <= ONLINE_ASYNC_FULL_ATE_BOUND:
+        raise AssertionError(f"online async: ATE over all {n} frames {ate:.4f} m > {ONLINE_ASYNC_FULL_ATE_BOUND:.4f} m")
     return rec, launches, slam
 
 
@@ -1307,6 +1356,219 @@ def run_save_load(slam, imgs, deps, gt, card):
         raise AssertionError(f"save/load: frame {k} relocalized on keyframe {kf} (frame {kf_frame}) with a motion "
                              f"{d_t:.4f} m, {d_r:.2f} deg off the ground truth's")
     return rec
+
+
+def _timed_s(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def run_sharded_gba(card):
+    """Phase 19a: the production-scale problem through the sharded full LM
+    schedule on meshes of 1, 2 and 4 virtual shards of the card and through
+    a world-size-1 NCCL group, against `ops.ba.bundle_adjust` on the card;
+    ms per 3-iteration LM chunk by mesh size, beside the single-device
+    chunk's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from orb_slam2v2_1_tpu_torch import sync
+    from orb_slam2v2_1_tpu_torch.ops import ba
+    from orb_slam2v2_1_tpu_torch.parallel import dist_ba
+    from orb_slam2v2_1_tpu_torch.parallel.mesh import Mesh
+    from orb_slam2v2_1_tpu_torch.utils import synthetic
+
+    prob = synthetic.ba_problem(np.random.default_rng(0), *GBA_PROBLEM)  # no device given: the card
+    args = (prob.poses, prob.points, prob.obs, prob.cam_fixed, prob.K, prob.bf)
+    (_, cost_ref), single_s = _timed_s(lambda: ba.bundle_adjust(prob, cg_iters=GBA_CG_ITERS))
+    cost_ref = float(cost_ref)
+
+    def chunk_ms(fn):
+        """Median ms of CHUNK_REPEATS calls of `fn`, each from the problem's
+        start (one warm-up call first)."""
+        fn()
+        return float(np.median([_timed_s(fn)[1] * 1e3 for _ in range(CHUNK_REPEATS)]))
+
+    single_chunk = {name: chunk_ms(lambda dense=dense: sync.host(ba.ba_step_count_lam(
+        prob, 1e-4, iters=3, cg_iters=GBA_CG_ITERS, robust=True, dense=dense)[3]))
+        for name, dense in (("pcg", False), ("dense", True))}
+    rec = {"problem": dict(zip(("cameras", "points", "observations"), GBA_PROBLEM)),
+           "valid_observations": int(prob.obs.valid.sum()), "cg_iters": GBA_CG_ITERS,
+           "single_device": {"cost": cost_ref, "full_schedule_s": single_s, "chunk_ms": single_chunk},
+           "all_reduces_per_lm_iteration": 2 * GBA_CG_ITERS + 5, "host_reads_per_lm_iteration": 1,
+           "meshes": {}, "card": card, "note": "virtual shards on one card"}
+    outs = {}
+    for n in MESH_SHARDS:
+        mesh = Mesh([MESH_DEVICE] * n)
+        sync.reset()
+        out, solve_s = _timed_s(lambda: dist_ba.make_sharded_bundle_adjust(mesh, cg_iters=GBA_CG_ITERS)(*args))
+        reads = sync.COUNT["syncs"]
+        cost = float(out[3])
+        rel = abs(cost - cost_ref) / cost_ref
+        chunk = dist_ba.get_sharded_lm_chunk(mesh, iters=3, robust=True, cg_iters=GBA_CG_ITERS)
+        ms = chunk_ms(lambda: chunk(*args, 1e-4))
+        outs[n] = out
+        rec["meshes"][n] = {"cost": cost, "rel_to_single": rel, "full_schedule_s": solve_s, "host_reads": reads,
+                            "chunk_ms": ms, "inliers": int(out[2].sum())}
+        log(f"sharded GBA, {n} virtual shard(s) of the card: cost {cost:.3f} (single device {cost_ref:.3f}, "
+            f"rel {rel:.2e}), full schedule {solve_s:.2f} s ({reads} host reads), {ms:.1f} ms per 3-iteration "
+            f"LM chunk (single device: PCG {single_chunk['pcg']:.1f}, dense {single_chunk['dense']:.1f})")
+        if not (torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all() and np.isfinite(cost)):
+            raise AssertionError(f"sharded GBA on {n} shards: values not finite")
+        if not rel < GBA_COST_REL:
+            raise AssertionError(f"sharded GBA on {n} shards: cost {cost} vs single device {cost_ref} (rel {rel:.4f})")
+
+    # One rank of NCCL on the card: the group's all-reduce runs for real.
+    store_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(store_dir, exist_ok=True)
+    store_path = os.path.join(store_dir, "nccl_store")
+    if os.path.exists(store_path):
+        os.remove(store_path)
+    dist.init_process_group(GROUP_BACKEND, store=dist.FileStore(store_path, 1), rank=0, world_size=1)
+    try:
+        nccl_mesh = Mesh([MESH_DEVICE], group=dist.group.WORLD)
+        nccl_out, nccl_s = _timed_s(lambda: dist_ba.make_sharded_bundle_adjust(nccl_mesh, cg_iters=GBA_CG_ITERS)(*args))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(a, b) for a, b in zip(nccl_out, outs[1]))
+    rec["nccl_world_size_1"] = {"backend": backend, "cost": float(nccl_out[3]), "full_schedule_s": nccl_s,
+                                "equal_to_in_process": same}
+    log(f"sharded GBA through a world-size-1 {backend} group: cost {float(nccl_out[3]):.3f}, {nccl_s:.2f} s, "
+        f"equal to the in-process 1-shard run: {same}, {card}")
+    if not same:
+        raise AssertionError("the NCCL run differs from its in-process twin")
+    return rec
+
+
+def _route_counts():
+    from orb_slam2v2_1_tpu_torch.parallel import dist_ba
+
+    return {f"{role}/{label}": n for (role, label), n in sorted(dist_ba.SOLVES.items())}
+
+
+def run_mesh_sync_orbit(imgs, deps, gt, cfg, card):
+    """Phase 19b: phase 11's configuration in sync mode with its loop closer
+    over all 321 orbit frames on a mesh of virtual shards of the card."""
+    import dataclasses
+
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch.parallel import dist_ba
+
+    slam = SlamSystem(config=dataclasses.replace(cfg, fps=ASYNC_FPS), sensor=Sensor.RGBD,
+                      mesh=[MESH_DEVICE] * MESH_SYNC_SHARDS)  # no device given: the card
+    inserted = []
+    insert = slam._insert_keyframe_fused
+
+    def counted_insert(frame):
+        inserted.append(1)
+        return insert(frame)
+
+    slam._insert_keyframe_fused = counted_insert
+    dist_ba.reset_counts()
+    outs, _, wall, launches, syncs = drive(slam, list(zip(imgs, deps)), slam.track_rgbd)
+    routes = _route_counts()
+    n = len(outs)
+    ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
+    closures = len(slam.loop_closer.closures)
+    rec = online_record(slam, outs, wall, launches, syncs, ate, card, mesh_shards=MESH_SYNC_SHARDS,
+                        ate_bound_m=MESH_SYNC_ATE_BOUND, reference_sync_ate_m=ONLINE_SYNC_REF_ATE,
+                        keyframes_inserted=len(inserted), closures=slam.loop_closer.closures, sharded_solves=routes)
+    log(f"mesh sync orbit ({MESH_SYNC_SHARDS} virtual shards): {rec['tracked']}/{n} tracked, {slam.n_kf_host} "
+        f"keyframes ({len(inserted)} inserted), {slam.n_loops_closed} loops {slam.loop_closer.closures}, ATE "
+        f"{ate:.4f} m (bound {MESH_SYNC_ATE_BOUND:.4f}), sharded solves {routes}, track ms p50 "
+        f"{rec['track_ms_p50']:.1f} p90 {rec['track_ms_p90']:.1f}, map ms p50 {rec['map_ms_p50']}, "
+        f"{rec['fps']:.2f} frames/s, host reads {syncs / n:.1f}/frame, launches {launches}, {card}")
+    if rec["tracked"] < 0.9 * n:
+        raise AssertionError(f"mesh sync orbit: tracked {rec['tracked']}/{n} < 90%")
+    if slam.n_loops_closed < 1:
+        raise AssertionError("mesh sync orbit: no loop closed")
+    if not ate <= MESH_SYNC_ATE_BOUND:
+        raise AssertionError(f"mesh sync orbit: ATE {ate:.4f} m > {MESH_SYNC_ATE_BOUND:.4f} m")
+    if routes.get("tracker/local_ba", 0) != len(inserted) or not inserted:
+        raise AssertionError(f"mesh sync orbit: {len(inserted)} keyframes inserted, sharded local BAs {routes}")
+    if routes.get("tracker/global_ba", 0) != closures:
+        raise AssertionError(f"mesh sync orbit: {closures} closures, sharded global BAs {routes}")
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched by the mesh sync orbit")
+    return rec, launches, slam
+
+
+def run_mesh_runner(slam, card):
+    """Phase 19c: the detached global-BA runner sharded over the mesh on
+    (b)'s final map, against the single-device runner on the same snapshot."""
+    import torch
+    from orb_slam2v2_1_tpu_torch.models import loop_closing as lc
+    from orb_slam2v2_1_tpu_torch.ops import ba
+
+    snap = slam.map
+    rec = {"mesh_shards": MESH_SYNC_SHARDS, "card": card}
+    costs = {}
+    for name, mesh in (("single", None), ("mesh", [MESH_DEVICE] * MESH_SYNC_SHARDS)):
+        runner = lc.GlobalBARunner(slam._K, slam._bf, mesh=mesh)
+        runner.start(snap)
+        runner.join(600.0)
+        if runner.running or runner.aborted or runner.result is None:
+            raise AssertionError(f"{name} GBA runner: running {runner.running}, aborted {runner.aborted}")
+        merged = lc.merge_gba_into_live(snap, *runner.result)
+        prob = lc.build_global_ba_problem(merged, slam._K, slam._bf)
+        costs[name] = float(ba._cost(prob, False, prob.obs.valid.to(torch.float32)))
+        rec[name] = {"cost": costs[name], "solve_ms": runner.solve_ms[-1], "chunks": len(runner.chunk_ms),
+                     "chunk_ms_median": sorted(runner.chunk_ms)[len(runner.chunk_ms) // 2]}
+        if not torch.isfinite(merged.kf_pose).all():
+            raise AssertionError(f"{name} GBA runner: poses not finite")
+    before = lc.build_global_ba_problem(snap, slam._K, slam._bf)
+    rec["cost_before"] = float(ba._cost(before, False, before.obs.valid.to(torch.float32)))
+    rel = abs(costs["mesh"] - costs["single"]) / costs["single"]
+    rec["rel"] = rel
+    log(f"detached GBA runner on the orbit's map: cost before {rec['cost_before']:.1f}, single device "
+        f"{costs['single']:.1f} in {rec['single']['solve_ms']:.0f} ms, {MESH_SYNC_SHARDS} virtual shards "
+        f"{costs['mesh']:.1f} in {rec['mesh']['solve_ms']:.0f} ms (rel {rel:.2e}), {card}")
+    if not rel < GBA_COST_REL:
+        raise AssertionError(f"sharded GBA runner: cost {costs['mesh']} vs single device {costs['single']}")
+    return rec
+
+
+def run_mesh_async_desk(cfg, card):
+    """Phase 19d: clean_desk_rgbd in async mode on a mesh of virtual shards
+    of the card; the mapping worker solves its windows through the mesh."""
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch.parallel import dist_ba
+    from orb_slam2v2_1_tpu_torch.utils import synthetic
+
+    imgs, deps, gt = synthetic.desk_frames(cfg, synthetic.desk_trajectory(DESK_FRAMES))  # no device given: the card
+    slam = SlamSystem(config=cfg, sensor=Sensor.RGBD, async_mapping=True, mesh=[MESH_DEVICE] * MESH_ASYNC_SHARDS)
+    dist_ba.reset_counts()
+    try:
+        outs, _, wall, launches, syncs = drive(slam, list(zip(imgs, deps)), slam.track_rgbd)
+        slam.flush()
+    finally:
+        slam.shutdown()
+    routes = _route_counts()
+    n = len(outs)
+    ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
+    tracked = sum(not e.lost for e in slam.trajectory.entries)
+    rec = online_record(slam, outs, wall, launches, syncs, ate, card, mesh_shards=MESH_ASYNC_SHARDS,
+                        ate_bound_m=DESK_ATE_BOUND, tracked_entries=tracked, sharded_solves=routes)
+    log(f"mesh async clean_desk_rgbd ({MESH_ASYNC_SHARDS} virtual shards): {tracked}/{n} tracked, "
+        f"{slam.n_kf_host} keyframes, ATE {ate:.5f} m (bound {DESK_ATE_BOUND:.5f}), sharded solves {routes}, "
+        f"track ms p50 {rec['track_ms_p50']:.1f}, {rec['fps']:.2f} frames/s, launches {launches}, {card}")
+    if tracked != n:
+        raise AssertionError(f"mesh async desk: tracked {tracked}/{n}")
+    if not ate <= DESK_ATE_BOUND:
+        raise AssertionError(f"mesh async desk: ATE {ate:.5f} m > {DESK_ATE_BOUND:.5f} m")
+    if routes.get("mapping/local_ba", 0) < 1 or routes.get("tracker/local_ba", 0):
+        raise AssertionError(f"mesh async desk: the mapping worker's windows were not solved on the mesh: {routes}")
+    for kernel, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {kernel} was not launched by the mesh async desk")
+    return rec, launches
 
 
 def main():
@@ -1464,6 +1726,13 @@ def main():
     cli_rec, cli_launches = run_cli(ecfg, card)
     server_rec, merge_launches = run_two_sessions(ecfg, card)
 
+    # --- the bundle adjustment sharded over a mesh of virtual shards of the card ---
+    gba_rec = run_sharded_gba(card)
+    mesh_sync_rec, mesh_sync_launches, mesh_slam = run_mesh_sync_orbit(all_imgs, all_deps, all_gt, cfg, card)
+    mesh_sync_rec["detached_runner"] = run_mesh_runner(mesh_slam, card)
+    del mesh_slam
+    mesh_async_rec, mesh_async_launches = run_mesh_async_desk(ecfg, card)
+
     if out_dir:
         profile(offline, imgs, deps, cfg, out_dir)
         profile_loop(all_imgs, all_deps, cfg, dev, out_dir)
@@ -1486,7 +1755,9 @@ def main():
                                      "kitti_async": ka_launches[name], "adv_clutter_rgbd": adv_rgbd_launches[name],
                                      "adv_mono": adv_mono_launches[name], "adv_stereo_dolly": adv_st_launches[name],
                                      "cli_run_slam": cli_launches[name],
-                                     "two_sessions": [r["launches"][name] for r in server_rec["sessions"]]},
+                                     "two_sessions": [r["launches"][name] for r in server_rec["sessions"]],
+                                     "mesh_sync_orbit": mesh_sync_launches[name],
+                                     "mesh_async_desk": mesh_async_launches[name]},
                 "launches_by_thread": {"online_async": oa_rec["launches_by_thread"][name],
                                        "kitti_async": ka_rec["launches_by_thread"][name],
                                        "two_sessions_merge": merge_launches[name]},
@@ -1514,6 +1785,9 @@ def main():
         "adv_stereo_dolly": adv_st_rec,
         "cli_run_slam": cli_rec,
         "two_sessions": server_rec,
+        "sharded_gba": gba_rec,
+        "mesh_sync_orbit": mesh_sync_rec,
+        "mesh_async_desk": mesh_async_rec,
     }, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

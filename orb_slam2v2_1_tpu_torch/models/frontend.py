@@ -3,7 +3,8 @@
 Port of the JAX package's `models/frontend.py` for RGB-D, stereo and
 monocular frames, with the split keyframe pipeline of the async runtime
 (`append_keyframe_only` on the tracker, `mapping_pipeline` on the mapping
-worker). The reference fuses a frame into one device program with `lax.cond` branches;
+worker, `mapping_pipeline_dist` where the window BA is sharded over a device
+mesh). The reference fuses a frame into one device program with `lax.cond` branches;
 here the two tracking fallbacks (wide-window retry, reference-keyframe
 search) are host branches, each decided by one counted device read
 (`sync.host`).
@@ -210,4 +211,15 @@ def mapping_pipeline(state: MapState, kf_id, K, bf, allow_ba: bool = True, voc=N
     state = mapping_pre_ba(state, kf_id, K, bf, voc)
     if allow_ba:
         state, _ = local_mapping.local_bundle_adjustment_impl(state, kf_id, K, bf)
+    return mapping_post_ba(state, kf_id)
+
+
+def mapping_pipeline_dist(state: MapState, kf_id, K, bf, mesh, voc=None, allow_ba: bool = True):
+    """`mapping_pipeline` with the window BA sharded over `mesh`
+    (`local_mapping.local_bundle_adjustment_dist`): the route of
+    `SlamSystem(mesh=...)`. Returns (state, victim, victim_parent,
+    T_redirect)."""
+    state = mapping_pre_ba(state, kf_id, K, bf, voc)
+    if allow_ba:
+        state, _ = local_mapping.local_bundle_adjustment_dist(state, kf_id, K, bf, mesh)
     return mapping_post_ba(state, kf_id)

@@ -5,7 +5,9 @@ CreateNewMapPoints, SearchInNeighbors, MapPointCulling, KeyFrameCulling and
 the Optimizer::LocalBundleAdjustment window). The reference's `vmap`s over
 neighbour keyframes are a written-out leading dimension here; the 2 x 10
 directed Fuse searches of a keyframe are one batched `match_projection`, so
-one kernel launch on the card. The multi-device local BA is not ported yet.
+one kernel launch on the card. `local_bundle_adjustment_dist` solves the
+same window with its observations sharded over a device mesh
+(`parallel/dist_ba.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from ..ops.topk import scatter_last, set_drop, stable_topk
 from ..ops.triangulate import projection_matrix, triangulate
+from ..parallel import dist_ba
 from .map_state import MapState, _mark, mp_observation_count, row_covisibility
 from .tracking import LOG_SCALE, N_LEVELS, SCALE, inv_level_sigma2
 
@@ -522,3 +525,37 @@ def local_bundle_adjustment_impl(state: MapState, kf_id, K, bf):
     wb = build_local_ba_window(state, kf_id, K, bf)
     win2, cost = ba.bundle_adjust_window(wb.win, iters1=4, iters2=6)
     return writeback_local_ba(state, wb, win2.poses, win2.points, win2.valid), cost
+
+
+# ---------------------------------------------------------------------------
+# The same window solved with its observations sharded over a device mesh
+# (parallel/dist_ba.py).
+# ---------------------------------------------------------------------------
+
+
+def window_to_obs(win: ba.BAWindow) -> ba.Obs:
+    """The camera-major (C, N) window as an observation list for the
+    sharded solver. C*N is fixed, so the shards' layout is the same for
+    every window."""
+    C, N = win.valid.shape
+    P = win.points.shape[0]
+    cam = torch.arange(C, dtype=torch.int32, device=win.valid.device)[:, None].expand(C, N)
+    return ba.Obs(
+        cam_idx=cam.reshape(-1),
+        pt_idx=torch.where(win.valid, torch.clamp(win.pt_idx, max=P - 1), 0).reshape(-1),
+        target=win.target.reshape(-1, 3),
+        inv_sigma2=win.inv_sigma2.reshape(-1),
+        is_stereo=win.is_stereo.reshape(-1),
+        valid=win.valid.reshape(-1),
+    )
+
+
+def local_bundle_adjustment_dist(state: MapState, kf_id, K, bf, mesh):
+    """Windowed local BA through the sharded LM engine on `mesh` (a
+    `parallel.mesh.Mesh`), with the (4, 6) iteration budget of the
+    single-device path. Returns (state, cost)."""
+    wb = build_local_ba_window(state, kf_id, K, bf)
+    solve = dist_ba.make_sharded_bundle_adjust(mesh, iters1=4, iters2=6, label="local_ba")
+    poses, points, valid, cost = solve(wb.win.poses, wb.win.points, window_to_obs(wb.win), wb.win.cam_fixed, K, bf)
+    dev = state.kf_pose.device
+    return writeback_local_ba(state, wb, poses.to(dev), points.to(dev), valid.to(dev).reshape(wb.win.valid.shape)), cost

@@ -9,9 +9,12 @@ detached on a worker thread. Everything here is plain PyTorch except the
 projection searches, which go through `ops.matching.match_projection`
 (kernel 2 on CUDA tensors).
 
-Left out: the BA sharded over several devices
-(`global_bundle_adjustment_dist`, any `mesh` of more than one device), which
-raises NotImplementedError.
+With a device mesh (`parallel.mesh.Mesh`, or a sequence of devices) of
+more than one shard, the whole-map BA runs with its observations sharded
+over the mesh (`global_bundle_adjustment_dist`, `parallel/dist_ba.py`), inline
+and in the detached runner alike; without one, `run_global_bundle_adjustment`
+builds a mesh over every visible card when there is more than one, as the
+reference does over `jax.devices()`.
 
 The RANSAC of `compute_sim3` draws from a `torch.Generator` seeded as the
 reference seeds its key (`kf_id * 131 + cand`), and the normal equations of
@@ -34,6 +37,8 @@ from ..ops import ba, hamming, lie, matching, pose_graph, sim3solver
 from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from ..ops.topk import scatter_last, set_drop, stable_topk
+from ..parallel import dist_ba
+from ..parallel import mesh as mesh_mod
 from ..runtime.native import NativeFlag
 from . import keyframe_database as kdb
 from .map_state import MapState, _cam_centers, _mark, refresh_covis
@@ -388,23 +393,27 @@ def expand_gba_result(snap_poses, opt_poses, cam_fixed, cam_slots, cam_used):
     return full, fixed_full
 
 
-_NO_MESH = "global BA over a mesh of more than one device is not ported yet"
-
-
-def _require_single_device(mesh) -> None:
-    if mesh is not None and len(mesh) > 1:
-        raise NotImplementedError(_NO_MESH)
-
-
 def global_bundle_adjustment_dist(state: MapState, K, bf, mesh):
-    """Whole-map BA sharded over the devices of `mesh`: not ported."""
-    raise NotImplementedError(_NO_MESH)
+    """Whole-map BA with its observations sharded over `mesh` (a
+    `parallel.mesh.Mesh`): the single-device schedule (5 robust + 10 plain LM
+    iterations, `cg_iters=32`) through `parallel.dist_ba`. Kmax*N
+    observations divide evenly over a power-of-two mesh. Returns (state,
+    cost)."""
+    prob = build_global_ba_problem(state, K, bf)
+    solve = dist_ba.make_sharded_bundle_adjust(mesh, iters1=5, iters2=10, cg_iters=32, label="global_ba")
+    poses, points, _, cost = solve(prob.poses, prob.points, prob.obs, prob.cam_fixed, K, bf)
+    dev = state.kf_pose.device
+    return apply_global_ba_result(state, poses.to(dev), points.to(dev), prob.cam_fixed), cost
 
 
 def run_global_bundle_adjustment(state: MapState, K, bf, mesh=None):
-    """Routing of the inline global BA: one device, or NotImplementedError
-    for a `mesh` (a sequence of devices) of more than one."""
-    _require_single_device(mesh)
+    """Routing of the inline global BA: a mesh of more than one shard gets
+    the sharded solve, else the single-device one. `mesh=None` builds a mesh
+    over every visible card when there is more than one (for a map on the
+    card)."""
+    mesh = mesh_mod.resolve("auto" if mesh is None and state.kf_pose.is_cuda else mesh)
+    if mesh is not None:
+        return global_bundle_adjustment_dist(state, K, bf, mesh)
     return global_bundle_adjustment(state, K, bf)
 
 
@@ -456,14 +465,15 @@ class GlobalBARunner:
     in chunks of `chunk_iters` LM iterations with the damping threaded
     through; keyframe insertion proceeds meanwhile. The worker launches on
     the default stream and waits for each chunk by reading its convergence
-    flag. `result` holds (snapshot identity arrays, optimized poses and
-    points, cam_fixed) when the solve finishes un-aborted; the owner folds it
-    in with `merge_gba_into_live`. An exception in the worker is raised by
-    `join`."""
+    flag. With a `mesh` of more than one shard the chunks run sharded
+    (`parallel.dist_ba.get_sharded_lm_chunk`). `result` holds (snapshot
+    identity arrays, optimized poses and points, cam_fixed) when the solve
+    finishes un-aborted; the owner folds it in with `merge_gba_into_live`.
+    An exception in the worker is raised by `join`."""
 
     def __init__(self, K, bf, chunk_iters: int = 3, cg_iters: int = 32, mesh=None,
                  dense_max_cams: int = 128):
-        _require_single_device(mesh)
+        self.mesh = mesh_mod.resolve(mesh)
         self.K = K
         self.bf = bf
         self.chunk_iters = chunk_iters
@@ -515,9 +525,17 @@ class GlobalBARunner:
             # as the reference: an extra LM iteration near convergence is
             # free accuracy.
             t0 = time.perf_counter()
-            prob, _, lam, conv = ba.ba_step_count_lam(
-                prob, lam, iters=self.chunk_iters, cg_iters=self.cg_iters, robust=robust, dense=dense)
-            converged = sync.host(conv)  # waits for the chunk
+            if self.mesh is not None:
+                chunk = dist_ba.get_sharded_lm_chunk(self.mesh, iters=self.chunk_iters, robust=robust,
+                                                     cg_iters=self.cg_iters)
+                poses, points, lam, converged = chunk(prob.poses, prob.points, prob.obs, prob.cam_fixed, prob.K,
+                                                      prob.bf, lam)  # reads each iteration's exit flag
+                dev = prob.poses.device
+                prob = prob._replace(poses=poses.to(dev), points=points.to(dev))
+            else:
+                prob, _, lam, conv = ba.ba_step_count_lam(
+                    prob, lam, iters=self.chunk_iters, cg_iters=self.cg_iters, robust=robust, dense=dense)
+                converged = sync.host(conv)  # waits for the chunk
             self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
             done += self.chunk_iters
             if self.stop_flag:
@@ -587,13 +605,12 @@ class LoopCloser:
     `apply_closure` per chunk of insertions."""
 
     def __init__(self, vocab, db, fix_scale: bool, K, bf, mesh=None):
-        _require_single_device(mesh)
         self.vocab = vocab
         self.db = db
         self.fix_scale = fix_scale
         self.K = K
         self.bf = bf
-        self.mesh = mesh
+        self.mesh = mesh_mod.resolve(mesh)
         # Detached GBA: the solve runs on its own thread on a snapshot,
         # abortable between LM chunks; results are merged by `service_gba`.
         self.detached_gba = False

@@ -28,8 +28,15 @@ Three modes, as in the reference:
 A session can stream its keyframes to a map server (`connect_server`,
 `parallel/stream.py`), load the server's map, merged with another session's
 if asked (`fetch_server_map`), and adopt a map the server's operator pushed
-(`poll_server_push`). Not ported yet, raising NotImplementedError: a `mesh`
-of more than one device.
+(`poll_server_push`).
+
+With `mesh` (a `parallel.mesh.Mesh`, a sequence of devices, or "auto" for
+every visible card) of more than one shard, each keyframe's local BA window
+and the loop closer's global BA, inline or detached, solve with their
+observations sharded over the mesh (`parallel/dist_ba.py`): in sync mode the
+keyframe is appended and its mapping round runs `mapping_pipeline_dist`, in
+async mode the mapping worker does. A device may appear more than once
+(`mesh=["cpu"] * 8`, `["cuda:0"] * 4`): virtual shards on one device.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from .. import device as device_mod
 from .. import kernels, sync
 from ..ops import ba, lie, orb, twoview
 from ..ops import vocab as vocab_ops
+from ..parallel import mesh as mesh_mod
 from ..runtime import native
 from ..runtime.pipeline import AsyncMapper, MapBox
 from ..utils import serialization
@@ -79,10 +87,6 @@ class TrackState(enum.Enum):
     LOST = 3
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
-
-
 class _Pending(NamedTuple):
     """A dispatched but undecided frame on the pipelined path."""
 
@@ -109,6 +113,8 @@ class SlamSystem:
     # with no lag; a lag of a few frames is taken only where it cannot cost
     # the track.
     pipeline_min_inliers: int = 60
+    # Device mesh of the sharded local and global BA (see the module doc);
+    # None: the single-device solves.
     mesh: object = None
     # Where the map and frames live; None means the card (raises without one).
     device: object = None
@@ -129,11 +135,8 @@ class SlamSystem:
     def __post_init__(self):
         if self.pipelined and not self.async_mapping:
             raise ValueError("pipelined=True requires async_mapping=True")
-        if self.mesh == "auto":
-            self.mesh = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-        if self.mesh is not None and len(self.mesh) > 1:
-            raise _not_ported("a mesh of more than one device")
-        self.mesh = None
+        # "auto": every visible card; one card or none means no mesh.
+        self.mesh = mesh_mod.resolve(self.mesh)
         self.device = device_mod.resolve(self.device)
         c = self.config
         dev = self.device
@@ -226,8 +229,12 @@ class SlamSystem:
         def mapping_fn(state, kf_id, allow_ba):
             t0 = _time.perf_counter()
             kf = torch.tensor(kf_id, dtype=torch.int64, device=self.device)
-            state, victim, vparent, T_red = frontend.mapping_pipeline(
-                state, kf, self._K, self._bf, allow_ba, voc=self.vocab)
+            if self.mesh is not None:
+                state, victim, vparent, T_red = frontend.mapping_pipeline_dist(
+                    state, kf, self._K, self._bf, self.mesh, voc=self.vocab, allow_ba=allow_ba)
+            else:
+                state, victim, vparent, T_red = frontend.mapping_pipeline(
+                    state, kf, self._K, self._bf, allow_ba, voc=self.vocab)
             v, p, T = sync.host_numpy(victim, vparent, T_red)  # also ends the round for its timing
             if int(v) >= 0:
                 # The tracker rewrites its trajectory on its next frame.
@@ -1043,9 +1050,16 @@ class SlamSystem:
     def _insert_keyframe_fused(self, frame: FrameData):
         t0 = _time.perf_counter()
         depth_limit = 0.0 if self.sensor == Sensor.MONOCULAR else self._depth_limit
-        self.map, kf_id, _, victim, vparent, T_redirect = frontend.insert_keyframe_fused_impl(
-            self.map, frame, self._K, self._bf, depth_limit, self.vocab,
-        )
+        if self.mesh is not None:
+            # The window BA sharded over the mesh: append, then the mapping
+            # round with its solve on the mesh.
+            self.map, kf_id = frontend.append_keyframe_only(self.map, frame, self._K, self._bf, depth_limit)
+            self.map, victim, vparent, T_redirect = frontend.mapping_pipeline_dist(
+                self.map, kf_id, self._K, self._bf, self.mesh, voc=self.vocab)
+        else:
+            self.map, kf_id, _, victim, vparent, T_redirect = frontend.insert_keyframe_fused_impl(
+                self.map, frame, self._K, self._bf, depth_limit, self.vocab,
+            )
         kf, v, p, T = sync.host_numpy(kf_id, victim, vparent, T_redirect)
         self._metrics["map"].append((_time.perf_counter() - t0) * 1e3)
         self.ref_kf = int(kf)
@@ -1065,7 +1079,19 @@ class SlamSystem:
         that keyframe, `res.T_rel`, as the trajectory places the frame. The
         reference appends the snapshot's pose, which after a loop correction
         leaves the keyframe and its depth points where the map was before
-        the correction, and the frames tracked on them follow it there."""
+        the correction, and the frames tracked on them follow it there.
+
+        The frame's map-point associations are slot ids of the snapshot. A
+        point killed in the live map since (merged by a loop fusion, culled
+        by a mapping round) frees its slot, and the next allocation reuses it:
+        this keyframe's own depth points, appended just after, take the
+        lowest free slots. The reference appends the snapshot's ids as they
+        are, and a keypoint then names another keypoint's new point: a false
+        observation for the next local BA. Here an association is kept only
+        if its slot holds the same live point as in the snapshot (valid in
+        both, same creating keyframe); the others go, and the keypoint may
+        get a depth point of its own, as ORB-SLAM2 gives one to a keypoint
+        whose point went bad (`_live_associations`)."""
         depth_limit = 0.0 if self.sensor == Sensor.MONOCULAR else self._depth_limit
         snap_ref_pose, snap_ref_seq = res.state.kf_pose[ref_kf], res.state.kf_seq[ref_kf]
         cell = []
@@ -1074,7 +1100,8 @@ class SlamSystem:
             live_ref_pose = state.kf_pose[ref_kf]
             moved = (state.kf_valid[ref_kf] & (state.kf_seq[ref_kf] == snap_ref_seq)
                      & torch.any(live_ref_pose != snap_ref_pose))
-            frame = res.frame._replace(pose=torch.where(moved, res.T_rel @ live_ref_pose, res.frame.pose))
+            frame = res.frame._replace(pose=torch.where(moved, res.T_rel @ live_ref_pose, res.frame.pose),
+                                       mp=_live_associations(res.frame.mp, res.state, state))
             state, kf_id = frontend.append_keyframe_only(state, frame, self._K, self._bf, depth_limit)
             cell.append(kf_id)
             return state
@@ -1256,6 +1283,14 @@ class SlamSystem:
             (odom,) = sync.host_numpy(self._odom_dev)
             return odom.astype(np.float64)
         return None if self._odom_Tcw is None else self._odom_Tcw.copy()
+
+
+def _live_associations(mp: torch.Tensor, snap: MapState, live: MapState) -> torch.Tensor:
+    """A frame's point ids from the snapshot `snap`, -1 where the slot no
+    longer holds the same point in `live` (see `_insert_keyframe_async`)."""
+    m = torch.clamp(mp, min=0).long()
+    same = (mp >= 0) & snap.mp_valid[m] & live.mp_valid[m] & (snap.mp_first_seq[m] == live.mp_first_seq[m])
+    return torch.where(same, mp, -1)
 
 
 def _renormalize_scale(state: MapState) -> MapState:

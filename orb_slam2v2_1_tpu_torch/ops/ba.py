@@ -6,7 +6,10 @@ Optimizer::PoseOptimization), the camera-major window solver
 `bundle_adjust_window` (Optimizer::LocalBundleAdjustment), and the COO
 engine `bundle_adjust` / `ba_step_count_lam` that global BA runs on
 (landmarks eliminated by the Schur complement; the reduced camera system is
-solved densely by Cholesky, or matrix-free by block-Jacobi PCG).
+solved densely by Cholesky, or matrix-free by block-Jacobi PCG). The PCG
+step, `schur_pcg_step`, takes the observations of one shard or of several
+with a reduction over them: `parallel/dist_ba.py` runs the same body with
+the observations sharded over a device mesh.
 
 The reference's `while_loop`s stop on an early-exit flag. In
 `pose_optimization` and the window solver each LM iteration reads that flag
@@ -431,9 +434,10 @@ def _residual_jac_batch(Tcw, pw, target, K, bf):
     return r, J_pose, J_pc @ R, pc[:, 2] <= 1e-6
 
 
-def _build_system(prob: BAProblem, robust: bool, inlier: torch.Tensor):
+def _build_system(prob: BAProblem, robust: bool, inlier: torch.Tensor, zero_fixed: bool = True):
     """Residuals, Jacobians, IRLS weights, cost, chi2 and behind flags of
-    every observation."""
+    every observation; `zero_fixed=False` keeps the fixed cameras'
+    Jacobians."""
     obs = prob.obs
     rmask = _res_mask(obs.is_stereo)
     cam = obs.cam_idx.long()
@@ -445,8 +449,8 @@ def _build_system(prob: BAProblem, robust: bool, inlier: torch.Tensor):
     chi2 = torch.sum(r * r * rmask, dim=-1) * obs.inv_sigma2
     hw = _huber_weights(obs.is_stereo, chi2, robust)
     w = obs.inv_sigma2 * hw * obs.valid * inlier
-    # Fixed cameras take no step: zero their Jacobians.
-    Jc = Jc * (~prob.cam_fixed)[cam].to(r.dtype)[:, None, None]
+    if zero_fixed:  # fixed cameras take no step: zero their Jacobians
+        Jc = Jc * (~prob.cam_fixed)[cam].to(r.dtype)[:, None, None]
     cost = torch.sum(chi2 * hw * obs.valid * inlier)
     return r, Jc, Jp, w, cost, chi2, behind
 
@@ -455,42 +459,76 @@ def _cost(prob: BAProblem, robust: bool, inlier: torch.Tensor) -> torch.Tensor:
     return _build_system(prob, robust, inlier)[4]
 
 
-def _schur_blocks(prob: BAProblem, r, Jc, Jp, w, lam):
-    """The block-diagonal Hessians (damped), the gradient blocks, the
-    inverse of the damped point blocks, and the observations' segments by
-    camera and by point (sums over them are order-exact, see `ops/topk`)."""
-    cam = prob.obs.cam_idx.long()
-    pt = prob.obs.pt_idx.long()
-    cam_seg = segments(cam, prob.poses.shape[0])
-    pt_seg = segments(pt, prob.points.shape[0])
-    Wc = Jc * w[:, None, None]  # (O,3,6)
-    Wp = Jp * w[:, None, None]  # (O,3,3)
-    Hcc = segment_sum(torch.einsum("oia,oib->oab", Jc, Wc), cam_seg)
-    Hpp = segment_sum(torch.einsum("oia,oib->oab", Jp, Wp), pt_seg)
-    gc = segment_sum(torch.einsum("oia,oi->oa", Wc, r), cam_seg)
-    gp = segment_sum(torch.einsum("oia,oi->oa", Wp, r), pt_seg)
-    dev = r.device
+class Lin(NamedTuple):
+    """One shard's linearization: its observations' camera and point indices
+    with their segments (sums over them are order-exact, see `ops/topk`),
+    the residuals, the Jacobians, and the Jacobians times the IRLS weights."""
+
+    cam: torch.Tensor  # (O,) int64
+    pt: torch.Tensor  # (O,) int64
+    cam_seg: tuple
+    pt_seg: tuple
+    r: torch.Tensor  # (O,3)
+    Jc: torch.Tensor  # (O,3,6)
+    Jp: torch.Tensor  # (O,3,3)
+    Wc: torch.Tensor  # (O,3,6)
+    Wp: torch.Tensor  # (O,3,3)
+
+
+def linearization(cam, pt, cam_seg, pt_seg, r, Jc, Jp, w) -> Lin:
+    return Lin(cam, pt, cam_seg, pt_seg, r, Jc, Jp, Jc * w[:, None, None], Jp * w[:, None, None])
+
+
+def _one_shard(parts):
+    """The reduction over a single shard: its partial is the total."""
+    return parts[0]
+
+
+def _normal_blocks(lins, lam, reduce=_one_shard):
+    """The damped block-diagonal Hessians, the gradient blocks and the
+    inverse of the damped point blocks: per shard a segment sum over its
+    observations, then one `reduce` over the shards."""
+    Hcc, Hpp, gc, gp = reduce([(
+        segment_sum(torch.einsum("oia,oib->oab", ln.Jc, ln.Wc), ln.cam_seg),
+        segment_sum(torch.einsum("oia,oib->oab", ln.Jp, ln.Wp), ln.pt_seg),
+        segment_sum(torch.einsum("oia,oi->oa", ln.Wc, ln.r), ln.cam_seg),
+        segment_sum(torch.einsum("oia,oi->oa", ln.Wp, ln.r), ln.pt_seg),
+    ) for ln in lins])
+    dev = Hcc.device
     Hcc_d = Hcc + (lam * torch.diagonal(Hcc, dim1=-2, dim2=-1) + 1e-8)[..., None] * torch.eye(6, device=dev)
     Hpp_d = Hpp + (lam * torch.diagonal(Hpp, dim1=-2, dim2=-1) + 1e-8)[..., None] * torch.eye(3, device=dev)
     Hpp_inv = torch.linalg.inv_ex(Hpp_d)[0]
-    return cam, pt, cam_seg, pt_seg, Wc, Hcc_d, gc, gp, Hpp_inv
+    return Hcc_d, gc, gp, Hpp_inv
 
 
-def _schur_solve(prob: BAProblem, r, Jc, Jp, w, lam, cg_iters: int):
-    """One damped GN step via landmark Schur elimination + block-Jacobi PCG.
-    The reduced camera matrix S is never formed: S x = (Hcc + lam D) x -
-    Hcp Hpp^-1 Hpc x goes through observation-indexed gathers and segment
-    sums."""
-    cam, pt, cam_seg, pt_seg, Wc, Hcc_d, gc, gp, Hpp_inv = _schur_blocks(prob, r, Jc, Jp, w, lam)
-    Wp = Jp * w[:, None, None]
+def _problem_lin(prob: BAProblem, r, Jc, Jp, w) -> Lin:
+    cam = prob.obs.cam_idx.long()
+    pt = prob.obs.pt_idx.long()
+    return linearization(cam, pt, segments(cam, prob.poses.shape[0]), segments(pt, prob.points.shape[0]),
+                         r, Jc, Jp, w)
+
+
+def schur_pcg_step(lins, cam_fixed, lam, cg_iters: int, reduce=_one_shard, guard: bool = False):
+    """One damped GN step via landmark Schur elimination + block-Jacobi PCG
+    over the observations of one or several shards (`lins`). The reduced
+    camera matrix S is never formed: S x = (Hcc + lam D) x - Hcp Hpp^-1 Hpc x
+    goes through observation-indexed gathers and segment sums, each sum over
+    observations ending in one `reduce` of the shards' partials (the mesh's
+    all-reduce; the identity for one shard). Replicated quantities live on
+    the device of the reduction and reach a shard's observations by `.to`.
+    Fixed cameras take no step; `guard` zeroes a non-finite step. Returns
+    (dx_cam (C,6), dx_pt (P,3))."""
+    Hcc_d, gc, gp, Hpp_inv = _normal_blocks(lins, lam, reduce)
 
     def hpc_x(x):  # Hpc @ x_cam -> (P,3)
-        v = torch.einsum("oia,oa->oi", Wc, x[cam])
-        return segment_sum(torch.einsum("oia,oi->oa", Jp, v), pt_seg)
+        return reduce([segment_sum(torch.einsum(
+            "oia,oi->oa", ln.Jp, torch.einsum("oia,oa->oi", ln.Wc, x.to(ln.r.device)[ln.cam])), ln.pt_seg)
+            for ln in lins])
 
     def hcp_y(y):  # Hcp @ y_point -> (C,6)
-        v = torch.einsum("oia,oa->oi", Wp, y[pt])
-        return segment_sum(torch.einsum("oia,oi->oa", Jc, v), cam_seg)
+        return reduce([segment_sum(torch.einsum(
+            "oia,oi->oa", ln.Jc, torch.einsum("oia,oa->oi", ln.Wp, y.to(ln.r.device)[ln.pt])), ln.cam_seg)
+            for ln in lins])
 
     def S_apply(x):
         u = torch.einsum("pab,pb->pa", Hpp_inv, hpc_x(x))
@@ -516,8 +554,17 @@ def _schur_solve(prob: BAProblem, r, Jc, Jp, w, lam, cg_iters: int):
         beta = torch.sum(res * z) / torch.clamp(rz, min=1e-20)
         p = z + beta * p
 
-    dx_pt = -torch.einsum("pab,pb->pa", Hpp_inv, gp + hpc_x(x))
-    return x * (~prob.cam_fixed)[:, None], dx_pt
+    dx_cam = x * (~cam_fixed.to(x.device))[:, None]
+    dx_pt = -torch.einsum("pab,pb->pa", Hpp_inv, gp + hpc_x(dx_cam))
+    if guard:
+        dx_cam = torch.where(torch.all(torch.isfinite(dx_cam)), dx_cam, torch.zeros_like(dx_cam))
+        dx_pt = torch.where(torch.all(torch.isfinite(dx_pt)), dx_pt, torch.zeros_like(dx_pt))
+    return dx_cam, dx_pt
+
+
+def _schur_solve(prob: BAProblem, r, Jc, Jp, w, lam, cg_iters: int):
+    """One damped GN step by `schur_pcg_step` on one device."""
+    return schur_pcg_step([_problem_lin(prob, r, Jc, Jp, w)], prob.cam_fixed, lam, cg_iters)
 
 
 def _schur_solve_dense(prob: BAProblem, r, Jc, Jp, w, lam):
@@ -527,9 +574,11 @@ def _schur_solve_dense(prob: BAProblem, r, Jc, Jp, w, lam):
     dense Cholesky. A failed factorization gives a zero step."""
     C = prob.poses.shape[0]
     P = prob.points.shape[0]
-    cam, pt, _, _, Wc, Hcc_d, gc, gp, Hpp_inv = _schur_blocks(prob, r, Jc, Jp, w, lam)
+    ln = _problem_lin(prob, r, Jc, Jp, w)
+    cam, pt = ln.cam, ln.pt
+    Hcc_d, gc, gp, Hpp_inv = _normal_blocks([ln], lam)
 
-    Bo = torch.einsum("oia,oib->oab", Wc, Jp)  # (O,6,3)
+    Bo = torch.einsum("oia,oib->oab", ln.Wc, Jp)  # (O,6,3)
     B = torch.zeros((P, C, 6, 3), dtype=r.dtype, device=r.device)
     # A (point, camera) pair repeats only where a keyframe holds one point at
     # two keypoints, and a sum of two terms does not depend on their order.

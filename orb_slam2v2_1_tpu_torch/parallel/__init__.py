@@ -1,2 +1,4 @@
-"""The multi-session map server: delta encoding, per-client maps and the
-cross-session merge (`server.py`), and its TCP transport (`stream.py`)."""
+"""Distribution: the multi-session map server, its delta encoding, per-client
+maps and cross-session merge (`server.py`) and TCP transport (`stream.py`);
+the one-axis device mesh with its all-reduce (`mesh.py`) and the bundle
+adjustment sharded over it (`dist_ba.py`)."""

@@ -13,7 +13,9 @@ rectified pairs of a sideways-and-forward dolly through the whole room
 `make_adversarial`, `degrade_frame` and `exposure_schedule` are the
 adversarial scenes and the photometric degradations of evaluate.py's
 `adv_*` legs; `adversarial_frames` renders those legs' sequences with
-evaluate.py's random-number order.
+evaluate.py's random-number order. `ba_problem` is the JAX package's
+production-scale bundle-adjustment problem (`__graft_entry__.py`
+`_make_problem`), drawn in the same order.
 """
 
 from __future__ import annotations
@@ -403,3 +405,43 @@ def stereo_dolly_frames(cfg, steps, rng: np.random.Generator, device=None, dx: f
         lefts.append(render(room, torch.from_numpy(Tcw).to(device), K, cfg.width, cfg.height)[0])
         rights.append(render(room, torch.from_numpy(Tr).to(device), K, cfg.width, cfg.height)[0])
     return torch.stack(lefts), torch.stack(rights), gt
+
+
+def ba_problem(rng: np.random.Generator, C: int, Pn: int, O: int, device=None):
+    """A bundle-adjustment problem of the size a full map gives: C cameras on
+    a lateral arc observing Pn points through O stereo observations with
+    0.3 px of noise (those out of the image or closer than 0.5 m invalid),
+    the poses perturbed by 0.01 in the tangent and the points by 0.05 m,
+    camera 0 fixed. The JAX package's `__graft_entry__._make_problem`, drawn
+    from `rng` in its order, on `device` (None: the card). Returns an
+    `ops.ba.BAProblem`."""
+    from ..ops import ba
+    from ..ops.projection import project_stereo
+
+    device = device_mod.resolve(device)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(device)
+
+    K = t([450.0, 450.0, 320.0, 240.0])
+    bf = 40.0
+    pts = t(np.stack([rng.uniform(-6, 6, Pn), rng.uniform(-4, 4, Pn), rng.uniform(4, 14, Pn)], -1))
+    xi = np.zeros((C, 6), np.float32)
+    xi[:, 0] = np.linspace(-1.5, 1.5, C)  # lateral arc
+    xi[:, 4] = np.linspace(-0.15, 0.15, C)  # gentle yaw
+    poses = lie.se3_exp(t(xi))
+    cam_idx = t(rng.integers(0, C, O), torch.int32)
+    pt_idx = t(rng.integers(0, Pn, O), torch.int32)
+    Tc, pw = poses[cam_idx.long()], pts[pt_idx.long()]
+    target = project_stereo(Tc, pw, K, bf)
+    target = target + t(rng.normal(0, 0.3, tuple(target.shape)))
+    z = (Tc[:, 2, :3] * pw).sum(-1) + Tc[:, 2, 3]
+    in_img = (target[:, 0] > 0) & (target[:, 0] < 640) & (target[:, 1] > 0) & (target[:, 1] < 480) & (z > 0.5)
+    obs = ba.Obs(cam_idx=cam_idx, pt_idx=pt_idx, target=target, inv_sigma2=torch.ones(O, device=device),
+                 is_stereo=torch.ones(O, dtype=torch.bool, device=device), valid=in_img)
+    cam_fixed = torch.zeros(C, dtype=torch.bool, device=device)
+    cam_fixed[0] = True
+    poses_n = lie.se3_exp(t(rng.normal(0, 0.01, (C, 6)))) @ poses
+    poses_n = torch.where(cam_fixed[:, None, None], poses, poses_n)
+    pts_n = pts + t(rng.normal(0, 0.05, tuple(pts.shape)))
+    return ba.BAProblem(poses=poses_n, points=pts_n, obs=obs, cam_fixed=cam_fixed, K=K, bf=bf)

@@ -177,6 +177,53 @@ def test_async_desk_on_card(cuda_device):
     assert kernels.LAUNCHES_BY_ROLE["masked_best_two"].get("mapping", 0) > 0
 
 
+def test_keyframe_drops_associations_to_killed_points():
+    """A keyframe appended from a frame tracked on a snapshot keeps only the
+    associations whose slot still holds the same live point. Here 60 of the
+    frame's points are killed in the live map meanwhile (what a loop fusion
+    does to the current side), so their slots are free and the keyframe's own
+    depth points take them: the new keyframe's row then names every point
+    once, only live points, each the snapshot's point or one it created. The
+    reference keeps the 60 stale ids, and its row names its new depth points
+    twice (on the card, 3-7 keyframes of a run of chip_smoke.py's phase 11
+    took 24-83 such ids in all)."""
+    cfg = config.SlamConfig(**DESK_KW)
+    imgs, deps, _ = synthetic.desk_frames(cfg, synthetic.desk_trajectory(150)[:7], device="cpu")
+    slam = instrument(system.SlamSystem(config=cfg, sensor=system.Sensor.RGBD, device="cpu", async_mapping=True))
+    try:
+        run_settled(slam, list(zip(imgs[:6], deps[:6])), slam.track_rgbd)
+        snap, _ = slam._box.read()
+        res = frontend.process_frame_impl(
+            snap, imgs[6], deps[6], slam.last_frame, slam._velocity_dev, slam._have_velocity, slam.ref_kf,
+            slam._K, slam._dist, slam._bf, slam._depth_limit, 6, slam._orb_cfg, cfg.width, cfg.height, slam.vocab)
+        ids = torch.unique(res.frame.mp[res.frame.mp >= 0])
+        assert ids.numel() > 100
+        killed = ids[torch.randperm(ids.numel(), generator=torch.Generator().manual_seed(0))[:60]].long()
+
+        def kill(s):
+            dead = torch.zeros(s.max_mp, dtype=torch.bool)
+            dead[killed] = True
+            rows = torch.where(dead[torch.clamp(s.kf_mp, min=0).long()] & (s.kf_mp >= 0), -1, s.kf_mp)
+            return s._replace(mp_valid=s.mp_valid & ~dead, kf_mp=rows)
+
+        slam._box.mutate(kill)
+        slam._insert_keyframe_async(res, slam.ref_kf)
+        kf = slam.ref_kf
+        row = slam.map.kf_mp[kf]
+        named = row[row >= 0]
+        assert torch.unique(named).numel() == named.numel()  # no point named twice
+        assert bool(slam.map.mp_valid[named.long()].all())
+        reused = torch.isin(killed, named)
+        assert bool(reused.any())  # the freed slots went to the keyframe's depth points
+        for slot in killed[reused].tolist():
+            assert int(slam.map.mp_first_seq[slot]) == int(slam.map.kf_seq[kf])
+        kept = (res.frame.mp >= 0) & ~torch.isin(res.frame.mp, killed)
+        assert torch.equal(row[kept], res.frame.mp[kept])
+        settle(slam)
+    finally:
+        slam.shutdown()
+
+
 def test_keyframe_reanchored_when_the_map_moved():
     """A keyframe whose frame was tracked on a snapshot is placed by the
     frame's pose relative to its reference keyframe when that keyframe moved

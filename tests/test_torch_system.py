@@ -279,18 +279,36 @@ def test_trajectory_and_ate_parity(tmp_path, rng):
     np.testing.assert_allclose(np.loadtxt(tmp_path / "t.tum"), np.loadtxt(tmp_path / "j.tum"), atol=2e-7)
 
 
+def _spy(monkeypatch, module, name):
+    """Count the calls of `module.name` (the function stays the same)."""
+    calls, real = [], getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
 @pytest.mark.parametrize("kwargs, match", [
     (dict(sensor=system.Sensor.RGBD, async_mapping=True), None),
     (dict(sensor=system.Sensor.RGBD, async_mapping=True, pipelined=True), None),
     (dict(sensor=system.Sensor.MONOCULAR, async_mapping=True), None),
-    (dict(sensor=system.Sensor.STEREO, mesh=["cuda:0", "cuda:1"]), "mesh"),
+    (dict(sensor=system.Sensor.STEREO, mesh=["cpu", "cpu"]), "mesh"),
 ])
-def test_unported_modes_raise(kwargs, match):
-    """Only a mesh of more than one device still raises. The async and
-    pipelined modes, ported since, start their workers and stop them."""
+def test_unported_modes_raise(kwargs, match, monkeypatch):
+    """Every mode builds. The async and pipelined modes start their workers
+    and stop them. A stereo system with a mesh of two shards (ported since)
+    holds it, hands it to its loop closer, and solves a keyframe's local BA
+    window through the sharded route."""
     if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            system.SlamSystem(config=config.SlamConfig(**KW), device="cpu", **kwargs)
+        from orb_slam2v2_1_tpu_torch.models import local_mapping
+
+        calls = _spy(monkeypatch, local_mapping, "local_bundle_adjustment_dist")
+        cfg = config.SlamConfig(**STEREO_KW)
+        slam = system.SlamSystem(config=cfg, device="cpu", **kwargs)
+        assert slam.mesh.size == 2 and slam.loop_closer.mesh is slam.mesh
+        left, right, _ = synthetic.stereo_dolly_frames(cfg, range(1), np.random.default_rng(3), device="cpu")
+        assert slam.track_stereo(left[0].numpy(), right[0].numpy(), 0.0) is not None  # initializes the map
+        slam._insert_keyframe_fused(slam.last_frame)
+        assert calls == [1] and slam.n_kf_host == 2
+        assert torch.isfinite(slam.map.kf_pose[:2]).all()
         return
     slam = system.SlamSystem(config=config.SlamConfig(**KW), device="cpu", **kwargs)
     try:
@@ -301,19 +319,26 @@ def test_unported_modes_raise(kwargs, match):
     assert slam._mapper is None and slam._box is None
 
 
-def test_unported_methods_raise_and_pipelined_needs_async(tmp_path):
-    """A mesh of more than one device still raises. The map server calls run
-    (ported since): connect, stream the initial keyframe, fetch it back and
-    start LOST in it. `save_map`, `load_map` and `warmup` run."""
+def test_unported_methods_raise_and_pipelined_needs_async(tmp_path, monkeypatch):
+    """Pipelining needs async mode. A system with a mesh of two shards
+    (ported since) builds, and its loop closer's global BA goes through the
+    sharded route. The map server calls run (ported since): connect, stream
+    the initial keyframe, fetch it back and start LOST in it. `save_map`,
+    `load_map` and `warmup` run."""
+    from orb_slam2v2_1_tpu_torch.models import loop_closing
     from orb_slam2v2_1_tpu_torch.parallel.stream import MapServerNode
 
     with pytest.raises(ValueError, match="async_mapping"):
         system.SlamSystem(config=config.SlamConfig(**KW), sensor=system.Sensor.RGBD, pipelined=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        system.SlamSystem(config=config.SlamConfig(**KW), sensor=system.Sensor.RGBD, mesh=["cpu", "cpu"],
-                          device="cpu")
     cfg = config.SlamConfig(**KW)
     imgs, deps, _ = synthetic.orbit_frames(cfg, 1, device="cpu", total=321)
+    meshed = system.SlamSystem(config=cfg, sensor=system.Sensor.RGBD, mesh=["cpu", "cpu"], device="cpu")
+    assert meshed.mesh.size == 2 and meshed.loop_closer.mesh is meshed.mesh
+    assert meshed.track_rgbd(imgs[0], deps[0], 0.0) is not None
+    calls = _spy(monkeypatch, loop_closing, "global_bundle_adjustment_dist")
+    state, cost = loop_closing.run_global_bundle_adjustment(meshed.map, meshed._K, meshed._bf,
+                                                            mesh=meshed.loop_closer.mesh)
+    assert calls == [1] and bool(torch.isfinite(cost)) and torch.isfinite(state.kf_pose).all()
     node = MapServerNode(port=0, max_kf=cfg.max_keyframes, max_mp=cfg.max_map_points, n_kp=cfg.n_features,
                          device="cpu")
     slam = system.SlamSystem(config=cfg, sensor=system.Sensor.RGBD, device="cpu")
