@@ -28,8 +28,9 @@ Phases, each of which raises (exit code != 0) on failure:
      per frame), tracked share, ATE against the orbit's ground truth,
      frames/s; the first frames are also run on the CPU (plain versions) and
      must agree;
-  5. the loop path: all 321 frames of the orbit through the same entry point
-     with a loop closer built as the benchmark builds it (the shared
+  5. the loop path: all 321 frames of the orbit as one timed run of the
+     benchmark's headline, `bench.headline(warm=0, runs=1)`: the same entry
+     point with the loop closer of `bench.make_loop_closer` (the package's
      vocabulary, a 128 x 1000 x 10000 database, fixed scale, detached global
      BA) in chunks of 32 frames: at least 90% of frames tracked, at least one
      loop closed, finite poses, ATE within its bound, kernel 2 launched more
@@ -42,6 +43,8 @@ Phases, each of which raises (exit code != 0) on failure:
      without a reset, relocalized within frames 30-32, >= 90% of the other
      frames tracked, ATE within its bound; the batched float64 eigen solve of
      the PnP RANSAC on the card gives the CPU's inlier set;
+  (phases 7-10 and 14-16 track through `evaluate.run_sequence`, the port's
+  accuracy harness, and take its tracked count and ATE)
   7. the stereo dolly: `evaluate.py`'s stereo_dolly through
      `SlamSystem(sensor=STEREO).track_stereo` (75 rectified pairs of
      `make_room(default_rng(3))`, 5 cm sideways and 4 cm forward a frame,
@@ -62,8 +65,9 @@ Phases, each of which raises (exit code != 0) on failure:
      two-view initialization, then every frame tracked, at least the
      reference's tracked count less 2, scale-aligned ATE within evaluate.py's
      gate; kernel 2's motion-model search runs at radius 15;
- 11. bench.py's online leg in its production mode: all 321 orbit frames at
-     the benchmark configuration with fps=30 through
+ 11. bench.py's online leg in its production mode, through the port's
+     `bench.production_system` and `bench.online_run`: all 321 orbit frames
+     at the benchmark configuration with fps=30 through
      `SlamSystem(sensor=RGBD, async_mapping=True, pipelined=True)`: `warmup()`
      (timed as set-up), `track_rgbd` per frame, `flush()`, `stats()`,
      `shutdown()`. At least 90% of the frames tracked, every frame past 253
@@ -77,8 +81,11 @@ Phases, each of which raises (exit code != 0) on failure:
      `flush`, and kernel 2 launched from the mapping worker's thread. One
      line: per-call latency p50/p90/p99/max, `map_ms_p50`, frames/s, host
      reads per frame by the tracker and by the workers, launches by thread;
- 12. bench.py's KITTI leg in the same mode, after `warmup(gba_buckets=(16, 32))`:
-     at least the reference's 51/60 tracked, ATE within 2 x 0.01137 m;
+ 12. bench.py's KITTI leg in the same mode (`bench.kitti_frames`,
+     `production_system`, `kitti_run`), after `warmup(gba_buckets=(16, 32))`:
+     at least the reference's 51/60 tracked, ATE within 2 x 0.01137 m; then
+     bench.py's JSON line, assembled by `bench.result_line` from phase 5's
+     run and the legs of phases 11-12, holds every key of bench.py's;
  13. the map of phase 11 saved with `save_map` (its arrays equal `to_numpy` of
      the live map) and loaded by a fresh system of the same mode, which
      starts LOST; on every 10th orbit frame the loaded map relocalizes as
@@ -137,6 +144,12 @@ Phases, each of which raises (exit code != 0) on failure:
      the single-device runner's on the same snapshot; (d) clean_desk_rgbd in
      async mode on 2 shards: 150/150 tracked, ATE within evaluate.py's gate,
      the mapping worker's windows solved on the mesh.
+ 20. the accuracy harness's entry point: `python -m
+     orb_slam2v2_1_tpu_torch.evaluate --quick --frames 40 --out
+     build/chip_smoke/EVAL.json` as a subprocess on the card: exit 0, every
+     gate passed, each leg's tracked count at least its floor, fast_score_nms
+     once per frame (the subprocess prints its launches); each leg's ATE
+     against its bound and the wall time.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -161,7 +174,6 @@ LOOP_FRAMES, LOOP_CHUNK = 321, 32
 # tracked, 33 keyframes, 1 loop closed, 1 global BA merged). The orbit turns
 # in place, so this ATE is the scatter of the estimated centers about a point.
 LOOP_ATE_BOUND = 2 * 0.3542
-VOCAB_NPZ = os.path.join(ROOT, "orb_slam2v2_1_tpu", "data", "vocab.npz")  # a data file, read in place
 # Phase 6: orbit frame indices fed to SlamSystem.track_rgbd, None = a black
 # frame (zero image and depth).
 ONLINE_SEQUENCE = list(range(70)) + [None] * 3 + list(range(66, 96)) + [30, 31, 32]
@@ -300,6 +312,26 @@ GBA_CG_ITERS, GBA_COST_REL, CHUNK_REPEATS = 24, 0.01, 3
 MESH_SYNC_SHARDS, MESH_ASYNC_SHARDS = 4, 2
 MESH_DEVICE, GROUP_BACKEND = "cuda:0", "nccl"  # a rehearsal on the CPU sets "cpu" and "gloo"
 MESH_SYNC_ATE_BOUND = 2 * ONLINE_SYNC_REF_ATE
+# After phase 12: the keys of bench.py's JSON line (bench.py:139-148,
+# 209-213, 260-271), which the line assembled from phases 5, 11 and 12 by
+# `bench.result_line` must hold.
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_pct", "online_fps", "online_p50_ms",
+              "online_p90_ms", "online_p99_ms", "online_max_ms", "online_loops", "online_kf", "online_resets",
+              "kitti_fps", "kitti_p50_ms", "kitti_p99_ms")
+# Phase 20: `python -m orb_slam2v2_1_tpu_torch.evaluate` with EVAL_QUICK_ARGS
+# as a subprocess on the card: exit 0, every gate passed, and per leg at
+# least EVAL_QUICK_MIN_TRACKED frames tracked: the rules of phases 9, 10 and
+# 14-15 at 40 frames, against the reference's counts there (`python
+# evaluate.py --cpu --quick --frames 40`, JAX on the CPU of an H100 machine:
+# 40/40, 40/40, 39/40, 28/40): the clean desk every frame, the other legs
+# the reference's count less 2. adv_mono is held to the port's own count
+# less 2 (15/40, first pose at frame 25): the two-view RANSAC's draws on the
+# card come from a CUDA generator, and on these frames its draw at frame 12
+# fails where the reference's, the CPU's and a CPU generator's draws of the
+# same seed all succeed, on the card too (`tests/torch_mono_init_probe.py
+# --frames 40 --card`); evaluate's gate holds the leg as it does the others.
+EVAL_QUICK_ARGS, EVAL_QUICK_TIMEOUT_S = ("--quick", "--frames", "40"), 600
+EVAL_QUICK_MIN_TRACKED = {"clean_desk_rgbd": 40, "adv_clutter_rgbd": 38, "clean_mono": 37, "adv_mono": 13}
 
 
 def log(*a):
@@ -448,23 +480,6 @@ def check_match(kt, dev, rng, floor_ms):
             "shapes": shapes}
 
 
-def make_loop_closer(cfg, dev):
-    """The benchmark's loop closer: the shared vocabulary, a database sized by
-    the configuration, fixed scale (RGB-D), detached global BA."""
-    import numpy as np
-    import torch
-    from orb_slam2v2_1_tpu_torch.models import keyframe_database as kdb
-    from orb_slam2v2_1_tpu_torch.models.loop_closing import LoopCloser
-    from orb_slam2v2_1_tpu_torch.ops import vocab
-
-    voc = vocab.load_vocabulary(np.load(VOCAB_NPZ), device=dev)
-    db = kdb.empty_database(cfg.max_keyframes, cfg.n_features, voc.n_words, device=dev)
-    closer = LoopCloser(voc, db, fix_scale=True, K=torch.tensor(cfg.K, dtype=torch.float32, device=dev),
-                        bf=float(cfg.bf))
-    closer.enable_detached_gba()
-    return closer
-
-
 def orbit_ate(poses, ok, gt):
     """(rigid-aligned ATE, first-frame anchored ATE) of the tracked frames."""
     import numpy as np
@@ -474,23 +489,23 @@ def orbit_ate(poses, ok, gt):
     return ate_rigid(c_est[ok], c_gt[ok]), float(np.sqrt(np.mean(np.sum((c_est[ok] - c_gt[ok]) ** 2, axis=1))))
 
 
-def run_loop_path(imgs, deps, gt, cfg, dev, card):
-    """Phase 5: the 321 frames with loop closing. Returns the record that
-    goes into the kernels line, the launch counts, and the poses."""
+def run_loop_path(imgs, deps, gt, cfg, card):
+    """Phase 5: the 321 frames with loop closing, as one timed run of the
+    benchmark's headline (`bench.headline` with no warm-up run, its loop
+    closer from `bench.make_loop_closer`). Returns the record that goes into
+    the kernels line, the launch counts, the poses, and the headline's
+    (frames/s, spread)."""
     import numpy as np
     import torch
-    from orb_slam2v2_1_tpu_torch import kernels, sync
-    from orb_slam2v2_1_tpu_torch.models import offline
+    from orb_slam2v2_1_tpu_torch import bench, kernels, sync
 
     n = imgs.shape[0]
-    closer = make_loop_closer(cfg, dev)
+    runs = []
     kernels.reset_launch_counts()
     sync.reset()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    poses, ok, state = offline.track_sequence_rgbd(imgs, deps, cfg, loop_closer=closer, chunk=LOOP_CHUNK)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    headline = bench.headline(cfg, imgs, deps, warm=0, runs=1, observe=lambda *run: runs.append(run))
+    wall, poses, ok, state, closer = runs[0]
     launches = dict(kernels.LAUNCHES)
     syncs = sync.COUNT["syncs"]
     runner = closer.gba_runner
@@ -526,7 +541,8 @@ def run_loop_path(imgs, deps, gt, cfg, dev, card):
         raise AssertionError(f"masked_best_two: {launches['masked_best_two']} launches for {rec['tracked']} tracked frames")
     if runner.running:
         raise AssertionError("a global-BA thread is still running after the sequence")
-    return rec, launches, poses, ok
+    rec["headline_fps"], rec["headline_spread"] = headline
+    return rec, launches, poses, ok, headline
 
 
 def ate_of(slam, gt_Tcw, align_scale=False, before=None):
@@ -543,15 +559,19 @@ def ate_of(slam, gt_Tcw, align_scale=False, before=None):
     return ate_rmse(est, {t: np.linalg.inv(T) for t, T in gt_Tcw.items()}, align_scale=align_scale)
 
 
-def online_record(slam, outs, wall, launches, syncs, ate, card, **extra):
+def online_record(slam, n, tracked, wall, launches, syncs, ate, card, **extra):
     st = slam.stats()
-    n = len(outs)
-    return {"frames": n, "tracked": sum(o is not None for o in outs), "keyframes": slam.n_kf_host,
+    return {"frames": n, "tracked": tracked, "keyframes": slam.n_kf_host,
             "map_points": int(slam.map.mp_valid.sum()), "loops_closed": slam.n_loops_closed,
             "relocalized": slam.n_relocalized, "resets": slam.n_resets, "ate_m": ate, "wall_s": wall,
             "fps": n / wall, "track_ms_p50": st["track_ms_p50"], "track_ms_p90": st["track_ms_p90"],
             "map_ms_p50": st["map_ms_p50"], "host_syncs": syncs, "host_syncs_per_frame": syncs / n,
             "launches": launches, "stats": st, "card": card, **extra}
+
+
+def n_posed(outs):
+    """How many `track_*` calls returned a pose."""
+    return sum(o is not None for o in outs)
 
 
 def drive(slam, frames, track):
@@ -623,7 +643,7 @@ def run_online_rgbd(imgs, deps, gt, cfg, card):
     seen = [o for o, k in zip(outs, ONLINE_SEQUENCE) if k is not None]
     replay = next((j - REPLAY for j in range(REPLAY, REPLAY + 2) if outs[j] is not None), None)
     far = next((j - FAR.start for j in range(FAR.start, FAR.stop) if outs[j] is not None), None)
-    rec = online_record(slam, outs, wall, launches, syncs, ate, card, ate_bound_m=ONLINE_ATE_BOUND,
+    rec = online_record(slam, len(outs), n_posed(outs), wall, launches, syncs, ate, card, ate_bound_m=ONLINE_ATE_BOUND,
                         keyframes_before_blackout=n_kf_before[0], lost_on_black=[s.name for s in states[BLACKOUT]],
                         replay_tracked_after=replay, far_relocalized_after=far,
                         tracked_share=sum(o is not None for o in seen) / len(seen))
@@ -648,19 +668,49 @@ def run_online_rgbd(imgs, deps, gt, cfg, card):
     return rec, launches
 
 
+def run_leg(cfg, sensor, frames, gt, align_scale=False):
+    """Track (a, b) frame pairs (image and depth, left and right, or image
+    and None) at timestamps j * 0.1 through `evaluate.run_sequence`, in a
+    sync `SlamSystem` of `sensor` on the card, with the counts reset just
+    before; ATE against the ground-truth Tcw `gt` (scale-aligned if
+    `align_scale`). Returns (the system, evaluate's result, wall s,
+    launches, host reads)."""
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch import evaluate, kernels, sync
+    from orb_slam2v2_1_tpu_torch.models.system import SlamSystem
+
+    slam = SlamSystem(config=cfg, sensor=sensor)  # no device given: the card
+    ts = [j * 0.1 for j in range(len(frames))]
+    kernels.reset_launch_counts()
+    sync.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate.run_sequence(cfg, sensor, frames, ts, {t: np.linalg.inv(T) for t, T in zip(ts, gt)},
+                                align_scale=align_scale, slam=slam)
+    torch.cuda.synchronize()
+    return slam, res, time.perf_counter() - t0, dict(kernels.LAUNCHES), sync.COUNT["syncs"]
+
+
+def leg_record(slam, res, wall, launches, syncs, card, **extra):
+    """`online_record` of a leg run by `run_leg`, with evaluate's result;
+    its tracked count and ATE are evaluate's."""
+    return online_record(slam, res["frames"], res["tracked"], wall, launches, syncs, res["ate_rmse_m"], card,
+                         evaluate=res, **extra)
+
+
 def run_stereo(name, cfg, n, step, ate_bound, min_tracked, card, cpu_check=False):
     """Phases 7 and 8: a dolly through SlamSystem.track_stereo on the card."""
     import numpy as np
     import torch
     from orb_slam2v2_1_tpu_torch.models import frontend
-    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
     from orb_slam2v2_1_tpu_torch.ops import orb
     from orb_slam2v2_1_tpu_torch.utils import synthetic
 
     left, right, gt = synthetic.stereo_dolly_frames(cfg, range(n), np.random.default_rng(3), dx=step[0], dz=step[1])
-    slam = SlamSystem(config=cfg, sensor=Sensor.STEREO)
-    outs, _, wall, launches, syncs = drive(slam, list(zip(left, right)), slam.track_stereo)
-    ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
+    slam, res, wall, launches, syncs = run_leg(cfg, Sensor.STEREO, list(zip(left, right)), gt)
+    ate = res["ate_rmse_m"]
     extra = {"ate_bound_m": ate_bound}
     if cpu_check:
         # The first pair's stereo frame on the CPU (plain versions) and the card.
@@ -678,17 +728,18 @@ def run_stereo(name, cfg, n, step, ate_bound, min_tracked, card, cpu_check=False
             f"max ur difference {d_ur:.2e} px")
         if not (same and agree >= 0.99 and d_ur <= 1e-3):
             raise AssertionError(f"{name}: the card's stereo frame disagrees with the CPU's")
-    rec = online_record(slam, outs, wall, launches, syncs, ate, card, **extra)
-    rec["untracked_frames"] = [j for j, o in enumerate(outs) if o is None]
+    rec = leg_record(slam, res, wall, launches, syncs, card, **extra)
+    tracked_at = {round(e.timestamp * 10) for e in slam.trajectory.entries if not e.lost}
+    rec["untracked_frames"] = [j for j in range(n) if j not in tracked_at]
     log(f"{name}: {rec['tracked']}/{n} tracked (lost: {rec['untracked_frames']}), {slam.n_kf_host} keyframes, "
         f"{rec['map_points']} points, "
-        f"ATE {ate:.4f} m (bound {ate_bound:.4f}), track ms p50 {rec['track_ms_p50']:.1f} p90 "
+        f"ATE {ate:.5f} m (bound {ate_bound:.4f}), track ms p50 {rec['track_ms_p50']:.1f} p90 "
         f"{rec['track_ms_p90']:.1f}, {rec['fps']:.2f} frames/s, host syncs {syncs / n:.1f}/frame, "
         f"launches {launches}, {card}")
     if rec["tracked"] < min_tracked:
         raise AssertionError(f"{name}: tracked {rec['tracked']}/{n} < {min_tracked}")
     if not ate <= ate_bound:
-        raise AssertionError(f"{name}: ATE {ate:.4f} m > {ate_bound:.4f} m")
+        raise AssertionError(f"{name}: ATE {ate:.5f} m > {ate_bound:.5f} m")
     if launches["fast_score_nms"] != 2 * n:
         raise AssertionError(f"{name}: fast_score_nms {launches['fast_score_nms']} launches for {n} stereo frames")
     return rec, launches
@@ -696,7 +747,7 @@ def run_stereo(name, cfg, n, step, ate_bound, min_tracked, card, cpu_check=False
 
 def run_desk(name, cfg, sensor, poses, ate_bound, card):
     """Phases 9 and 10: an evaluate.py desk leg through SlamSystem on the
-    card, counted as evaluate.py's run_sequence counts it."""
+    card, counted by evaluate's `run_sequence`."""
     from orb_slam2v2_1_tpu_torch.models.system import Sensor
     from orb_slam2v2_1_tpu_torch.utils import synthetic
 
@@ -706,27 +757,19 @@ def run_desk(name, cfg, sensor, poses, ate_bound, card):
 
 
 def run_frames(name, cfg, sensor, frames, gt, ate_bound, card):
-    """Track (a, b) frame pairs (image and depth, left and right, or image
-    and None) through a sync `SlamSystem` of `sensor` on the card; ATE
-    against the ground-truth Tcw `gt` (scale-aligned for mono) within
-    `ate_bound`, fast_score_nms launched once per image."""
-    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    """Track (a, b) frame pairs through `run_leg`; ATE against the
+    ground-truth Tcw `gt` (scale-aligned for mono) within `ate_bound`,
+    fast_score_nms launched once per image."""
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
 
     mono = sensor == Sensor.MONOCULAR
-    slam = SlamSystem(config=cfg, sensor=sensor)
-    track = {Sensor.MONOCULAR: lambda a, b, ts: slam.track_monocular(a, ts), Sensor.RGBD: slam.track_rgbd,
-             Sensor.STEREO: slam.track_stereo}[sensor]
-    outs, _, wall, launches, syncs = drive(slam, frames, track)
-    n = len(outs)
-    ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)}, align_scale=mono)
+    slam, res, wall, launches, syncs = run_leg(cfg, sensor, frames, gt, align_scale=mono)
+    n, tracked, ate = res["frames"], res["tracked"], res["ate_rmse_m"]
     entries = slam.trajectory.entries
-    tracked = sum(not e.lost for e in entries)
-    first = next((k for k, e in enumerate(entries) if not e.lost), None)
-    post_init = tracked / max(len(entries) - first, 1) if first is not None else 0.0
-    rec = online_record(slam, outs, wall, launches, syncs, ate, card, ate_bound_m=ate_bound, tracked=tracked,
-                        tracked_share=tracked / n, tracked_share_post_init=post_init,
-                        first_pose_frame=next((j for j, o in enumerate(outs) if o is not None), None),
-                        scale_aligned=mono)
+    first = next((round(e.timestamp * 10) for e in entries if not e.lost), None)
+    post_init = res["tracked_frac_post_init"] if first is not None else 0.0
+    rec = leg_record(slam, res, wall, launches, syncs, card, ate_bound_m=ate_bound, tracked_share=tracked / n,
+                     tracked_share_post_init=post_init, first_pose_frame=first, scale_aligned=mono)
     log(f"{name}: {tracked}/{n} tracked (post-init share {post_init:.3f}, first pose at frame "
         f"{rec['first_pose_frame']}), {slam.n_kf_host} keyframes, {slam.n_relocalized} relocalizations, "
         f"{slam.n_resets} resets, {rec['map_points']} points, ATE {ate:.5f} m{' scale-aligned' if mono else ''} "
@@ -769,14 +812,22 @@ def run_adversarial(name, cfg, sensor, scene, poses, rng, clean_ate, card):
     return rec, launches
 
 
-CLI_WRAPPER = """
+# Runs the module named by its first argument as `python -m` would, with the
+# remaining arguments, then prints the kernels' launch counts of the process.
+MODULE_WRAPPER = """
 import json, runpy, sys
 from orb_slam2v2_1_tpu_torch import kernels
+module = sys.argv.pop(1)
 try:
-    runpy.run_module("orb_slam2v2_1_tpu_torch.run_slam", run_name="__main__", alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
 finally:
     print("kernel launches: " + json.dumps(kernels.LAUNCHES), flush=True)
 """
+
+
+def printed_launches(stdout: str) -> dict:
+    """The launch counts a process run through MODULE_WRAPPER printed last."""
+    return json.loads(stdout.split("kernel launches: ")[-1].splitlines()[0])
 
 
 def settings_text(cfg) -> str:
@@ -832,7 +883,8 @@ def run_cli(cfg, card):
     os.makedirs(out)
     files = {k: os.path.join(out, v) for k, v in (("traj", "traj.txt"), ("map", "map.npz"), ("ply", "map.ply"),
                                                    ("viz", "viz"))}
-    cmd = [sys.executable, "-c", CLI_WRAPPER, "--dataset", os.path.join(data_dir, "seq"), "--settings", yaml,
+    cmd = [sys.executable, "-c", MODULE_WRAPPER, "orb_slam2v2_1_tpu_torch.run_slam", "--dataset",
+           os.path.join(data_dir, "seq"), "--settings", yaml,
            "--out", files["traj"], "--save-map", files["map"], "--ply", files["ply"], "--viz-dir", files["viz"]]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
@@ -847,7 +899,7 @@ def run_cli(cfg, card):
                                              proc.stdout).groups())
     with open(files["traj"]) as f:
         tracked = sum(1 for ln in f if ln.strip())
-    launches = json.loads(proc.stdout.split("kernel launches: ")[-1].splitlines()[0])
+    launches = printed_launches(proc.stdout)
     slam = SlamSystem(config=config.load_settings(yaml), sensor=Sensor.RGBD)  # no device given: the card
     slam.load_map(files["map"])
     mp_pos, mp_valid = (t.cpu().numpy() for t in (slam.map.mp_pos, slam.map.mp_valid))
@@ -956,7 +1008,8 @@ def run_two_sessions(cfg, card):
             slam.connect_server("127.0.0.1", node.port, cid)
             outs, _, wall, launches, syncs = drive(slam, list(zip(imgs, deps)), slam.track_rgbd)
             ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
-            recs.append(online_record(slam, outs, wall, launches, syncs, ate, card, session=cid, frames_of_sweep=[a, b - 1]))
+            recs.append(online_record(slam, len(outs), n_posed(outs), wall, launches, syncs, ate, card, session=cid,
+                                      frames_of_sweep=[a, b - 1]))
         s1, s2 = clients
         for cid, slam in ((1, s1), (2, s2)):
             _wait_for(lambda: cid in node.server.clients and node.server.clients[cid].n_deltas >= slam._stream.n_queued,
@@ -1062,35 +1115,31 @@ def run_two_sessions(cfg, card):
     return rec, merge_launches
 
 
-def drive_async(slam, frames, track, dt):
-    """Phases 11-12: feed the frames through `track` with every count reset
-    just before, then `flush()`, `stats()` and `shutdown()`, as bench.py's
-    legs do. Returns the per-call latencies (ms, host clock), the wall time
-    to the end of the flush, the stats after it, the shutdown's seconds, and
-    the counts read after the shutdown (the workers' last rounds included):
-    launches, launches by thread role, host reads by thread role."""
+def drive_async(slam, run, frames):
+    """Phases 11-12: one of the benchmark's legs (`run`: `bench.online_run`
+    or `bench.kitti_run`) on a production system, with every count reset
+    just before the first frame; then `stats()` and the timed `shutdown()`,
+    as the leg's entry point ends. Returns the leg's keys, the per-call
+    latencies (ms), the leg's wall (s, to the last call), the stats after
+    the flush, the shutdown's seconds, and the counts read after the
+    shutdown (the workers' last rounds included): launches, launches by
+    thread role, host reads by thread role."""
     import torch
     from orb_slam2v2_1_tpu_torch import kernels, sync
 
     kernels.reset_launch_counts()
     sync.reset()
     torch.cuda.synchronize()
-    lat = []
-    t0 = time.perf_counter()
-    for j, (a, b) in enumerate(frames):
+    try:
+        out, lat, wall = run(slam, frames)
+        st = slam.stats()
+    finally:
         t1 = time.perf_counter()
-        track(a, b, j * dt)
-        lat.append(1e3 * (time.perf_counter() - t1))
-    slam.flush()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    st = slam.stats()
-    t1 = time.perf_counter()
-    slam.shutdown()
-    torch.cuda.synchronize()
-    shut_s = time.perf_counter() - t1
+        slam.shutdown()
+        torch.cuda.synchronize()
+        shut_s = time.perf_counter() - t1
     by_role = {k: dict(v) for k, v in kernels.LAUNCHES_BY_ROLE.items()}
-    return lat, wall, st, shut_s, dict(kernels.LAUNCHES), by_role, dict(sync.BY_ROLE)
+    return out, lat, wall, st, shut_s, dict(kernels.LAUNCHES), by_role, dict(sync.BY_ROLE)
 
 
 def async_record(slam, name, n, lat, wall, st, shut_s, launches, by_role, reads, ate, warm_s, card, **extra):
@@ -1138,20 +1187,17 @@ def check_async(rec, launches, by_role, slam, fast_per_frame):
 
 
 def run_online_async(imgs, deps, gt, cfg, card, check=True):
-    """Phase 11: bench.py's online leg (bench.py:120-165) on the card; with
-    check=False the record is returned without the phase's assertions."""
+    """Phase 11: the benchmark's online leg (`bench.online_leg`: its
+    production system and its frame loop, bench.py:120-165) on the card;
+    with check=False the record is returned without the phase's assertions.
+    Returns the record, the launches, the system and the leg's keys."""
     import dataclasses
 
     import numpy as np
-    import torch
-    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
+    from orb_slam2v2_1_tpu_torch import bench
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
 
-    slam = SlamSystem(config=dataclasses.replace(cfg, fps=ASYNC_FPS), sensor=Sensor.RGBD, async_mapping=True,
-                      pipelined=True)  # no device given: the card
-    t0 = time.perf_counter()
-    slam.warmup()
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
+    slam, warm_s = bench.production_system(dataclasses.replace(cfg, fps=ASYNC_FPS), Sensor.RGBD)  # the card
     n = imgs.shape[0]
     # Which frames relocalized, on which keyframe (made from which frame):
     # a relocalization mid-orbit re-anchors the camera, possibly in the part
@@ -1165,8 +1211,7 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
         return out
 
     slam._relocalize = logged_relocalize
-    lat, wall, st, shut_s, launches, by_role, reads = drive_async(slam, list(zip(imgs, deps)), slam.track_rgbd,
-                                                                  1.0 / ASYNC_FPS)
+    out, lat, wall, st, shut_s, launches, by_role, reads = drive_async(slam, bench.online_run, list(zip(imgs, deps)))
     g0 = np.linalg.inv(gt[0])
     gt_t = {j / ASYNC_FPS: gt[j] @ g0 for j in range(n)}
     ate = ate_of(slam, gt_t)
@@ -1179,7 +1224,7 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
                        ate_bound_m=ONLINE_ASYNC_FULL_ATE_BOUND,
                        lost_frames=[round(e.timestamp * ASYNC_FPS) for e in entries if e.lost],
                        decided_past_253=len(past), tracked_past_253=sum(past), relocalizations_at=relocs,
-                       closures=slam.loop_closer.closures, losses=slam.losses)
+                       closures=slam.loop_closer.closures, losses=slam.losses, bench_keys=out)
     log(f"online async (bench.py's online leg): {rec['tracked']}/{n} tracked (lost: {rec['lost_frames']}), "
         f"{rec['tracked_past_253']}/{rec['decided_past_253']} past frame {REF_CRASH_FRAME}, {slam.n_kf_host} keyframes, "
         f"{slam.n_loops_closed} loops {slam.loop_closer.closures}, {slam.n_relocalized} relocalizations "
@@ -1192,7 +1237,7 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
         f"reads/frame tracker {rec['tracker_reads_per_frame']:.1f} workers {rec['worker_reads_per_frame']:.1f}, "
         f"launches {launches} by thread {by_role}, warmup {warm_s:.1f} s, shutdown {shut_s:.1f} s, {card}")
     if not check:
-        return rec, launches, slam
+        return rec, launches, slam, out
     check_async(rec, launches, by_role, slam, 1)
     if rec["tracked"] < 0.9 * n:
         raise AssertionError(f"online async: tracked {rec['tracked']}/{n} < 90%")
@@ -1206,28 +1251,24 @@ def run_online_async(imgs, deps, gt, cfg, card, check=True):
                              f"{ONLINE_ASYNC_ATE_BOUND:.4f} m")
     if not ate <= ONLINE_ASYNC_FULL_ATE_BOUND:
         raise AssertionError(f"online async: ATE over all {n} frames {ate:.4f} m > {ONLINE_ASYNC_FULL_ATE_BOUND:.4f} m")
-    return rec, launches, slam
+    return rec, launches, slam, out
 
 
-def run_kitti_async(kcfg, card):
-    """Phase 12: bench.py's KITTI leg (bench.py:167-225) on the card."""
-    import numpy as np
-    import torch
-    from orb_slam2v2_1_tpu_torch.models.system import Sensor, SlamSystem
-    from orb_slam2v2_1_tpu_torch.utils import synthetic
+def run_kitti_async(card):
+    """Phase 12: the benchmark's KITTI leg (`bench.kitti_leg`: its frames,
+    production system and frame loop, bench.py:167-225) on the card.
+    Returns the record, the launches and the leg's keys."""
+    from orb_slam2v2_1_tpu_torch import bench
+    from orb_slam2v2_1_tpu_torch.models.system import Sensor
 
-    left, right, gt = synthetic.stereo_dolly_frames(kcfg, range(KITTI_FRAMES), np.random.default_rng(3),
-                                                    dx=KITTI_STEP[0], dz=KITTI_STEP[1])
-    slam = SlamSystem(config=kcfg, sensor=Sensor.STEREO, async_mapping=True, pipelined=True)
-    t0 = time.perf_counter()
-    slam.warmup(gba_buckets=(16, 32))
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    lat, wall, st, shut_s, launches, by_role, reads = drive_async(slam, list(zip(left, right)), slam.track_stereo, 0.1)
+    kcfg, left, right, gt = bench.kitti_frames()  # the card
+    slam, warm_s = bench.production_system(kcfg, Sensor.STEREO, left.device, gba_buckets=(16, 32))
+    out, lat, wall, st, shut_s, launches, by_role, reads = drive_async(slam, bench.kitti_run, list(zip(left, right)))
     ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
     rec = async_record(slam, "kitti_async", KITTI_FRAMES, lat, wall, st, shut_s, launches, by_role, reads, ate, warm_s,
                        card, ate_bound_m=KITTI_ATE_BOUND,
-                       lost_frames=[round(e.timestamp * 10) for e in slam.trajectory.entries if e.lost])
+                       lost_frames=[round(e.timestamp * 10) for e in slam.trajectory.entries if e.lost],
+                       bench_keys=out)
     log(f"KITTI async (bench.py's KITTI leg): {rec['tracked']}/{KITTI_FRAMES} tracked (lost: {rec['lost_frames']}), "
         f"{slam.n_kf_host} keyframes, ATE {ate:.4f} m (bound {KITTI_ATE_BOUND:.4f}), track ms p50 "
         f"{rec['track_ms_p50']:.1f} p90 {rec['track_ms_p90']:.1f} p99 {rec['track_ms_p99']:.1f} max "
@@ -1239,7 +1280,7 @@ def run_kitti_async(kcfg, card):
         raise AssertionError(f"KITTI async: tracked {rec['tracked']}/{KITTI_FRAMES} < {KITTI_MIN_TRACKED}")
     if not ate <= KITTI_ATE_BOUND:
         raise AssertionError(f"KITTI async: ATE {ate:.4f} m > {KITTI_ATE_BOUND:.4f} m")
-    return rec, launches
+    return rec, launches, out
 
 
 def _turn_deg(Ra, Rb):
@@ -1476,7 +1517,7 @@ def run_mesh_sync_orbit(imgs, deps, gt, cfg, card):
     n = len(outs)
     ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
     closures = len(slam.loop_closer.closures)
-    rec = online_record(slam, outs, wall, launches, syncs, ate, card, mesh_shards=MESH_SYNC_SHARDS,
+    rec = online_record(slam, n, n_posed(outs), wall, launches, syncs, ate, card, mesh_shards=MESH_SYNC_SHARDS,
                         ate_bound_m=MESH_SYNC_ATE_BOUND, reference_sync_ate_m=ONLINE_SYNC_REF_ATE,
                         keyframes_inserted=len(inserted), closures=slam.loop_closer.closures, sharded_solves=routes)
     log(f"mesh sync orbit ({MESH_SYNC_SHARDS} virtual shards): {rec['tracked']}/{n} tracked, {slam.n_kf_host} "
@@ -1554,7 +1595,7 @@ def run_mesh_async_desk(cfg, card):
     n = len(outs)
     ate = ate_of(slam, {j * 0.1: T for j, T in enumerate(gt)})
     tracked = sum(not e.lost for e in slam.trajectory.entries)
-    rec = online_record(slam, outs, wall, launches, syncs, ate, card, mesh_shards=MESH_ASYNC_SHARDS,
+    rec = online_record(slam, n, n_posed(outs), wall, launches, syncs, ate, card, mesh_shards=MESH_ASYNC_SHARDS,
                         ate_bound_m=DESK_ATE_BOUND, tracked_entries=tracked, sharded_solves=routes)
     log(f"mesh async clean_desk_rgbd ({MESH_ASYNC_SHARDS} virtual shards): {tracked}/{n} tracked, "
         f"{slam.n_kf_host} keyframes, ATE {ate:.5f} m (bound {DESK_ATE_BOUND:.5f}), sharded solves {routes}, "
@@ -1569,6 +1610,53 @@ def run_mesh_async_desk(cfg, card):
         if count <= 0:
             raise AssertionError(f"kernel {kernel} was not launched by the mesh async desk")
     return rec, launches
+
+
+def run_evaluate_quick(card):
+    """Phase 20: the accuracy harness's entry point, `python -m
+    orb_slam2v2_1_tpu_torch.evaluate --quick --frames 40 --out
+    build/chip_smoke/EVAL.json`, as a subprocess on the card: exit 0, every
+    gate passed, each leg's tracked count at least its floor, fast_score_nms
+    launched once per frame (counted by the subprocess)."""
+    import subprocess
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "EVAL.json")
+    if os.path.exists(path):
+        os.remove(path)
+    cmd = [sys.executable, "-c", MODULE_WRAPPER, "orb_slam2v2_1_tpu_torch.evaluate", *EVAL_QUICK_ARGS, "--out", path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=EVAL_QUICK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "evaluate_quick.txt"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"evaluate {' '.join(EVAL_QUICK_ARGS)} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(path) as f:
+        ev = json.load(f)
+    launches = printed_launches(proc.stdout)
+    seqs, gates = ev["sequences"], ev["gates"]
+    for name, r in seqs.items():
+        g = gates.get(name, {})
+        log(f"evaluate {' '.join(EVAL_QUICK_ARGS)}, {name}: {r['tracked']}/{r['frames']} tracked (post-init share "
+            f"{r['tracked_frac_post_init']}, floor {EVAL_QUICK_MIN_TRACKED.get(name)}), {r['n_kf']} keyframes, "
+            f"{r['n_resets']} resets, ATE {r['ate_rmse_m']} m (bound {g.get('bound')}, pass {g.get('pass')}), "
+            f"wall {r['wall_s']} s")
+    n_frames = sum(r["frames"] for r in seqs.values())
+    log(f"evaluate {' '.join(EVAL_QUICK_ARGS)}: exit 0, all_pass {ev['all_pass']}, {wall:.1f} s with start-up, "
+        f"launches {launches} for {n_frames} frames, {card}")
+    if not ev["all_pass"] or sorted(gates) != sorted(seqs):
+        raise AssertionError(f"evaluate: gates {gates}")
+    if sorted(seqs) != sorted(EVAL_QUICK_MIN_TRACKED):
+        raise AssertionError(f"evaluate --quick ran the legs {sorted(seqs)}")
+    for name, floor in EVAL_QUICK_MIN_TRACKED.items():
+        if seqs[name]["tracked"] < floor:
+            raise AssertionError(f"evaluate: {name} tracked {seqs[name]['tracked']} < {floor}")
+    if launches["fast_score_nms"] != n_frames or launches["masked_best_two"] <= 0:
+        raise AssertionError(f"evaluate: launches {launches} for {n_frames} frames")
+    return {"args": list(EVAL_QUICK_ARGS), "eval": ev, "wall_s": wall, "launches": launches,
+            "min_tracked": EVAL_QUICK_MIN_TRACKED, "card": card}, launches
 
 
 def main():
@@ -1586,8 +1674,8 @@ def main():
 
     if os.path.dirname(os.path.dirname(os.path.abspath(port.__file__))) != ROOT:
         raise SystemExit(f"chip_smoke: expected the port beside this script, found {port.__file__}")
+    from orb_slam2v2_1_tpu_torch import bench, kernels, sync
     from orb_slam2v2_1_tpu_torch import kernel_times as kt
-    from orb_slam2v2_1_tpu_torch import kernels, sync
     from orb_slam2v2_1_tpu_torch.models import offline
     from orb_slam2v2_1_tpu_torch.ops import orb
     from orb_slam2v2_1_tpu_torch.utils import config, synthetic
@@ -1667,7 +1755,7 @@ def main():
         raise AssertionError("the card's path disagrees with the CPU plain path")
 
     # --- the loop path ---
-    loop_rec, loop_launches, loop_poses, loop_ok = run_loop_path(all_imgs, all_deps, all_gt, cfg, dev, card)
+    loop_rec, loop_launches, loop_poses, loop_ok, headline = run_loop_path(all_imgs, all_deps, all_gt, cfg, card)
 
     # --- the online entry point: RGB-D with relocalization, stereo dolly, KITTI geometry ---
     online_rec, online_launches = run_online_rgbd(all_imgs, all_deps, all_gt, cfg, card)
@@ -1698,8 +1786,14 @@ def main():
                              f"{mono_rec['tracked_share_post_init']:.3f}), the reference {MONO_REF_TRACKED}")
 
     # --- bench.py's online and KITTI legs in its production mode, and the map saved and loaded ---
-    oa_rec, oa_launches, oa_slam = run_online_async(all_imgs, all_deps, all_gt, cfg, card)
-    ka_rec, ka_launches = run_kitti_async(kcfg, card)
+    oa_rec, oa_launches, oa_slam, oa_out = run_online_async(all_imgs, all_deps, all_gt, cfg, card)
+    ka_rec, ka_launches, ka_out = run_kitti_async(card)
+    # bench's JSON line from phase 5's headline run and the legs of phases 11-12.
+    bench_line = bench.result_line(*headline, {**oa_out, **ka_out})
+    log("bench line (phase 5's one headline run without warm-up, phases 11-12's legs): " + json.dumps(bench_line))
+    missing = [k for k in BENCH_KEYS if k not in bench_line]
+    if missing:
+        raise AssertionError(f"the bench line lacks {missing}")
     oa_rec["save_load"] = run_save_load(oa_slam, all_imgs, all_deps, all_gt, card)
     del oa_slam
 
@@ -1733,6 +1827,10 @@ def main():
     del mesh_slam
     mesh_async_rec, mesh_async_launches = run_mesh_async_desk(ecfg, card)
 
+    # --- the accuracy harness's entry point, as a subprocess ---
+    torch.cuda.empty_cache()
+    eval_rec, eval_launches = run_evaluate_quick(card)
+
     if out_dir:
         profile(offline, imgs, deps, cfg, out_dir)
         profile_loop(all_imgs, all_deps, cfg, dev, out_dir)
@@ -1757,7 +1855,8 @@ def main():
                                      "cli_run_slam": cli_launches[name],
                                      "two_sessions": [r["launches"][name] for r in server_rec["sessions"]],
                                      "mesh_sync_orbit": mesh_sync_launches[name],
-                                     "mesh_async_desk": mesh_async_launches[name]},
+                                     "mesh_async_desk": mesh_async_launches[name],
+                                     "evaluate_quick_40": eval_launches[name]},
                 "launches_by_thread": {"online_async": oa_rec["launches_by_thread"][name],
                                        "kitti_async": ka_rec["launches_by_thread"][name],
                                        "two_sessions_merge": merge_launches[name]},
@@ -1788,6 +1887,8 @@ def main():
         "sharded_gba": gba_rec,
         "mesh_sync_orbit": mesh_sync_rec,
         "mesh_async_desk": mesh_async_rec,
+        "bench_line": bench_line,
+        "evaluate_quick": eval_rec,
     }, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -1837,10 +1938,10 @@ def loop_rounds(imgs, deps, cfg, dev, profiled):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
-    from orb_slam2v2_1_tpu_torch import sync
+    from orb_slam2v2_1_tpu_torch import bench, sync
     from orb_slam2v2_1_tpu_torch.models import loop_closing, offline
 
-    closer = make_loop_closer(cfg, dev)
+    closer = bench.make_loop_closer(cfg, device=dev)
     runner = closer.gba_runner
     rows, mark = [], {}
     real_round = offline._loop_round

@@ -69,9 +69,9 @@ from .loop_closing import LoopCloser
 from .map_state import MapState, covisibility, empty_map, refresh_covis
 from .tracking import FrameData
 
-# The shared vocabulary, read in place from the reference package's data.
-VOCAB_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "orb_slam2v2_1_tpu", "data",
-                         "vocab.npz")
+# The package's vocabulary (`data/vocab.npz`, package data): without the file
+# a system has no vocabulary, so no relocalization and no loop closing.
+VOCAB_NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "vocab.npz")
 
 
 class Sensor(enum.Enum):

@@ -203,8 +203,8 @@ class SlamServer:
         return self._client(cid).state
 
     def _get_vocab(self):
-        """The shared vocabulary, read in place from the reference
-        package's data file (None when it is missing)."""
+        """The package's vocabulary, `models.system.VOCAB_NPZ` (None when
+        the file is missing)."""
         if not hasattr(self, "_vocab"):
             from ..models.system import VOCAB_NPZ
             from ..ops import vocab as vocab_ops

@@ -226,14 +226,15 @@ def lateral_trajectory(n_frames: int, extent: float = 1.5) -> list[np.ndarray]:
     return poses
 
 
-def desk_frames(cfg, poses, device=None):
-    """evaluate.py's clean desk sequence: `make_desk(default_rng(7))` seen
-    from `poses` (Tcw), each made relative to the first as evaluate.py's
-    `norm` does, rendered on `device` (None: the card). Returns (images
-    (n,H,W), depths (n,H,W)) tensors and the relative Tcw (n,4,4) float64
-    numpy, evaluate.py's ground truth."""
-    device = device_mod.resolve(device)
-    desk = make_desk(np.random.default_rng(7), device=device)
+def desk_frames(cfg, poses, device=None, scene: PlaneScene | None = None):
+    """evaluate.py's clean desk sequence: `scene` (default
+    `make_desk(default_rng(7))` on `device`, None: the card) seen from
+    `poses` (Tcw), each made relative to the first as evaluate.py's `norm`
+    does, rendered on the scene's device. Returns (images (n,H,W), depths
+    (n,H,W)) tensors and the relative Tcw (n,4,4) float64 numpy,
+    evaluate.py's ground truth."""
+    desk = make_desk(np.random.default_rng(7), device=device_mod.resolve(device)) if scene is None else scene
+    device = desk.tex.device
     K = torch.tensor(cfg.K, dtype=torch.float32, device=device)
     gt = np.stack([p @ np.linalg.inv(poses[0]) for p in poses])
     imgs, deps = [], []

@@ -114,7 +114,7 @@ def main():
         if events is not None:
             events.clear()
         DUMP["run"], DUMP["n"] = run, 0
-        rec, _, slam = chip_smoke.run_online_async(imgs, deps, gt, cfg, card, check=False)
+        rec, _, slam, _ = chip_smoke.run_online_async(imgs, deps, gt, cfg, card, check=False)
         if "--loop-log" in args:
             print(json.dumps({"run": run, "loop_rounds": rounds}), flush=True)
         est = slam.trajectory.absolute_poses(slam.map.kf_pose.cpu().numpy())
