@@ -150,6 +150,13 @@ Phases, each of which raises (exit code != 0) on failure:
      gate passed, each leg's tracked count at least its floor, fast_score_nms
      once per frame (the subprocess prints its launches); each leg's ATE
      against its bound and the wall time.
+ 21. the RANSAC draws of `ops/prng.py` (the reference's Threefry stream and
+     Gumbel top-k, from the reference's keys) on the card against the CPU,
+     bit for bit: the 32-bit words and the hypothesis sets of each sampler
+     at the shapes of the paths that draw (relocalization's PnP, loop
+     closing's Sim3, the server's merge, both halves of the two-view
+     initializer's key, the KITTI geometry's PnP, a 4096-wide mask); ms,
+     device time and launches per draw.
 The second-to-last line is a JSON object of per-kernel results; the last line
 is {"ok": true, "device": {...}}.
 """
@@ -324,14 +331,20 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "spread_pct", "online_fp
 # 14-15 at 40 frames, against the reference's counts there (`python
 # evaluate.py --cpu --quick --frames 40`, JAX on the CPU of an H100 machine:
 # 40/40, 40/40, 39/40, 28/40): the clean desk every frame, the other legs
-# the reference's count less 2. adv_mono is held to the port's own count
-# less 2 (15/40, first pose at frame 25): the two-view RANSAC's draws on the
-# card come from a CUDA generator, and on these frames its draw at frame 12
-# fails where the reference's, the CPU's and a CPU generator's draws of the
-# same seed all succeed, on the card too (`tests/torch_mono_init_probe.py
-# --frames 40 --card`); evaluate's gate holds the leg as it does the others.
+# the reference's count less 2. adv_mono's two-view initialization succeeds
+# at frame 12 only with the reference's draws (`tests/torch_mono_init_probe.py
+# --frames 40 --card`), which the port now draws on the card too.
 EVAL_QUICK_ARGS, EVAL_QUICK_TIMEOUT_S = ("--quick", "--frames", "40"), 600
-EVAL_QUICK_MIN_TRACKED = {"clean_desk_rgbd": 40, "adv_clutter_rgbd": 38, "clean_mono": 37, "adv_mono": 13}
+EVAL_QUICK_MIN_TRACKED = {"clean_desk_rgbd": 40, "adv_clutter_rgbd": 38, "clean_mono": 37, "adv_mono": 26}
+# Phase 21: (name, key seed, sampler, keypoints) of each draw held against the
+# CPU; the seeds follow the reference's formulas (relocalization frame_id * 97
+# + kf, loop closing kf_id * 131 + cand, the server's key(0), the two-view
+# initializer's key(frame_id), split), the widths the benchmark's 1000
+# keypoints, the KITTI geometry's 2000, and 4096. A third of the entries valid.
+DRAWS = (("reloc_pnp", 40 * 97 + 3, "pnp", 1000), ("loop_sim3", 16 * 131 + 0, "sim3", 1000),
+         ("merge_sim3", 0, "sim3", 1000), ("two_view_h", 12, "two_view_h", 1000),
+         ("two_view_f", 12, "two_view_f", 1000), ("kitti_pnp", 30 * 97 + 5, "pnp", 2000),
+         ("wide_pnp", 7 * 97 + 1, "pnp", 4096))
 
 
 def log(*a):
@@ -594,11 +607,12 @@ def drive(slam, frames, track):
 
 def check_pnp_on_card(dev):
     """The PnP RANSAC's batched float64 eigen solve on the card against the
-    CPU on exact correspondences with 20% outliers, the same hypothesis sets:
-    the same inlier set and count, poses within 1e-4."""
+    CPU on exact correspondences with 20% outliers, each drawing its
+    hypothesis sets from the same key: the same inlier set and count, poses
+    within 1e-4."""
     import numpy as np
     import torch
-    from orb_slam2v2_1_tpu_torch.ops import pnp
+    from orb_slam2v2_1_tpu_torch.ops import pnp, prng
 
     rng = np.random.default_rng(4)
     n = 1000
@@ -607,9 +621,8 @@ def check_pnp_on_card(dev):
     uv[::5] = rng.uniform([0, 0], [640, 480], (n // 5, 2))
     args = [torch.from_numpy(a.astype(np.float32)) for a in (pc, uv, np.ones(n))] + [torch.ones(n, dtype=torch.bool)]
     K = torch.tensor([550.0, 550.0, 320.0, 240.0])
-    sets = pnp.sample_sets(args[3], torch.Generator().manual_seed(1))
-    ref = pnp.pnp_ransac(*args, K, sets=sets)
-    got = pnp.pnp_ransac(*(a.to(dev) for a in args), K.to(dev), sets=sets.to(dev))
+    ref = pnp.pnp_ransac(*args, K, key=prng.key(1))
+    got = pnp.pnp_ransac(*(a.to(dev) for a in args), K.to(dev), key=prng.key(1))
     same = torch.equal(got.inliers.cpu(), ref.inliers)
     dT = float((got.Tcw.cpu() - ref.Tcw).abs().max())
     log(f"PnP RANSAC (256 x 12x12 float64 eigh, 1000 points): card {int(got.n_inliers)} inliers, CPU "
@@ -617,6 +630,42 @@ def check_pnp_on_card(dev):
     if not (same and int(got.n_inliers) == int(ref.n_inliers) and dT <= 1e-4):
         raise AssertionError("PnP RANSAC on the card disagrees with the CPU")
     return {"inliers": int(got.n_inliers), "same_inlier_set": same, "max_pose_diff": dT}
+
+
+def check_draws(kt, dev, card):
+    """Phase 21: each draw of DRAWS on the card and on the CPU from the same
+    key and mask: the 32-bit words and the sets equal; ms per draw (events
+    around one call, median of 20), device time and launches per draw (the
+    profiler's kernel rows)."""
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch.ops import pnp, prng, sim3solver, twoview
+
+    samplers = {"pnp": (pnp.sample_sets, pnp.N_HYP, pnp.SAMPLE),
+                "sim3": (sim3solver.hypothesis_sets, sim3solver.N_HYP, 3),
+                "two_view_h": (twoview.sample_sets, twoview.N_RANSAC, 8),
+                "two_view_f": (twoview.sample_sets, twoview.N_RANSAC, 8)}
+    rng = np.random.default_rng(21)
+    rows = []
+    for name, seed, sampler, n in DRAWS:
+        draw, n_sets, k = samplers[sampler]
+        key = prng.key(seed)
+        if sampler.startswith("two_view"):
+            key = prng.split(key)[sampler == "two_view_f"]
+        valid = torch.from_numpy(rng.uniform(size=n) < 1 / 3)
+        valid_card = valid.to(dev)
+        same_bits = torch.equal(prng.bits32(key, (n_sets, n), dev).cpu(), prng.bits32(key, (n_sets, n)))
+        cpu_sets, card_sets = draw(valid, key), draw(valid_card, key)
+        same_sets = card_sets.device == valid_card.device and torch.equal(card_sets.cpu(), cpu_sets)
+        ms = kt.wrapper_us(lambda: draw(valid_card, key)) / 1e3
+        busy, launches = kt.busy_us(lambda: draw(valid_card, key))
+        rows.append({"name": name, "seed": seed, "shape": [n_sets, n], "k": k, "same_bits": same_bits,
+                     "same_sets": same_sets, "ms": ms, "device_ms": busy / 1e3, "launches": launches})
+        log(f"draw {name} (key {seed}, {n_sets} x {n}, top {k}): card = CPU bits {same_bits}, sets {same_sets}; "
+            f"{ms:.4f} ms per draw, device {busy / 1e3:.4f} ms, {launches:.0f} launches, {card}")
+        if not (same_bits and same_sets):
+            raise AssertionError(f"draw {name}: the card's draw differs from the CPU's")
+    return rows
 
 
 def run_online_rgbd(imgs, deps, gt, cfg, card):
@@ -1831,6 +1880,9 @@ def main():
     torch.cuda.empty_cache()
     eval_rec, eval_launches = run_evaluate_quick(card)
 
+    # --- the RANSAC draws on the card against the CPU ---
+    draw_rec = check_draws(kt, dev, card)
+
     if out_dir:
         profile(offline, imgs, deps, cfg, out_dir)
         profile_loop(all_imgs, all_deps, cfg, dev, out_dir)
@@ -1889,6 +1941,7 @@ def main():
         "mesh_async_desk": mesh_async_rec,
         "bench_line": bench_line,
         "evaluate_quick": eval_rec,
+        "draws": draw_rec,
     }, default=str), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -137,8 +137,9 @@ def evaluate_synthetic(n_frames: int, quick: bool = False, device=None):
     log(f"[adv_clutter_rgbd] {results['adv_clutter_rgbd']}")
 
     # -- Monocular: clean + adversarial -----------------------------------
-    # The clean leg draws no random numbers (evaluate.py's generator of seed
-    # 9 goes unused): the desk of seed 7 seen along the lateral sweep.
+    # The clean leg degrades nothing (evaluate.py's generator of seed 9 goes
+    # unused): the desk of seed 7 seen along the lateral sweep. Its two-view
+    # RANSAC draws the reference's sets, from the reference's key.
     n_mono = max(n_frames * 2 // 3, 40)
     log("[clean_mono] rendering...")
     imgs, _, poses_m = synthetic.desk_frames(cfg_mono, synthetic.lateral_trajectory(n_mono), scene=desk)

@@ -16,11 +16,11 @@ and in the detached runner alike; without one, `run_global_bundle_adjustment`
 builds a mesh over every visible card when there is more than one, as the
 reference does over `jax.devices()`.
 
-The RANSAC of `compute_sim3` draws from a `torch.Generator` seeded as the
-reference seeds its key (`kf_id * 131 + cand`), and the normal equations of
-the pose graph and the global BA are summed in index order (`ops/topk`), so
-a run is repeatable, on the card too; the draws themselves are not the
-reference's.
+The RANSAC of `compute_sim3` draws from the reference's own key
+(`kf_id * 131 + cand`) through `ops/prng.py`, so it picks the reference's
+hypothesis sets on every device, and the normal equations of the pose graph
+and the global BA are summed in index order (`ops/topk`), so a run is
+repeatable, on the card too.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from collections import deque
 import torch
 
 from .. import sync
-from ..ops import ba, hamming, lie, matching, pose_graph, sim3solver
+from ..ops import ba, hamming, lie, matching, pose_graph, prng, sim3solver
 from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from ..ops.topk import scatter_last, set_drop, stable_topk
@@ -97,12 +97,12 @@ def _sim3_project(p, S, K):
     return torch.stack([K[0] * pc[:, 0] / z + K[2], K[1] * pc[:, 1] / z + K[3]], -1), pc[:, 2] > 0
 
 
-def compute_sim3(state: MapState, kf_cur, kf_cand, K, generator: torch.Generator | None = None,
+def compute_sim3(state: MapState, kf_cur, kf_cand, K, key: prng.Key | None = None,
                  fix_scale: bool = True, voc=None, sets: torch.Tensor | None = None):
     """ComputeSim3 for one candidate: match map points (BoW-node aligned),
     Horn RANSAC, widen with mutual SearchBySim3 matches, refine with
     OptimizeSim3 (>= 20 inliers), then a wider projection search for total
-    support (>= 40). The RANSAC draws from `generator`, or uses the given
+    support (>= 40). The RANSAC draws from `key`, or uses the given
     hypothesis `sets`. Returns (success, S12, n_inliers, n_total)."""
     m = match_keyframes(state, kf_cur, kf_cand, voc)
     N = state.n_kp
@@ -123,7 +123,7 @@ def compute_sim3(state: MapState, kf_cur, kf_cand, K, generator: torch.Generator
 
     res = sim3solver.sim3_ransac(
         p1, p2_row[m.idx], uv1, xy_l[m.idx], s2_1, s2_2_row[m.idx], m.ok, K,
-        generator=generator, sets=sets, fix_scale=fix_scale,
+        key=key, sets=sets, fix_scale=fix_scale,
     )
 
     # SearchBySim3: widen the match set with pairs that agree mutually under
@@ -675,11 +675,6 @@ class LoopCloser:
         if r.result is not None:
             self._merge(box)
 
-    def _generator(self, device, kf_id: int, cand: int) -> torch.Generator:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(kf_id * 131 + cand)
-        return gen
-
     def _try_candidates(self, state: MapState, kf_id: int, cands, scores, consistent):
         """Sim3 on the consistent candidates, strongest first, at most 3.
         Returns (cand, S12) of the first accepted one, else None."""
@@ -687,7 +682,7 @@ class LoopCloser:
         for gi in order[:3]:
             cand = int(cands[gi])
             success, S12, _, _ = compute_sim3(
-                state, kf_id, cand, self.K, self._generator(state.kf_pose.device, kf_id, cand),
+                state, kf_id, cand, self.K, prng.key(kf_id * 131 + cand),
                 fix_scale=self.fix_scale, voc=self.vocab,
             )
             if sync.host(success):
@@ -772,7 +767,7 @@ class LoopCloser:
         if not (valid[kf_before] and valid[kf_reloc]) or row[kf_reloc] > 0:
             return None
         success, S12, _, _ = compute_sim3(
-            state, kf_before, kf_reloc, self.K, self._generator(state.kf_pose.device, kf_before, kf_reloc),
+            state, kf_before, kf_reloc, self.K, prng.key(kf_before * 131 + kf_reloc),
             fix_scale=self.fix_scale, voc=self.vocab,
         )
         return S12 if sync.host(success) else None

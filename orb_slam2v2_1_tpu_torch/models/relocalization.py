@@ -8,9 +8,9 @@ and a second optimization, accepted at >= 50 inliers.
 
 The candidate loop stays on the host, as in the reference: one read for the
 candidates' scores, then one per candidate tried (at most 5). Each candidate's
-RANSAC draws from a `torch.Generator` seeded with `frame_id * 97 + kf` on the
-frame's device; a caller can pass the hypothesis sets instead (`sets`), as the
-parity tests do with the reference's.
+RANSAC draws from the reference's own key, `frame_id * 97 + kf`, through
+`ops/prng.py`, so it picks the reference's hypothesis sets on every device; a
+caller can pass the hypothesis sets instead (`sets`).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import sync
-from ..ops import ba, hamming, matching, pnp
+from ..ops import ba, hamming, matching, pnp, prng
 from ..ops import vocab as vocab_ops
 from ..ops.projection import project
 from . import keyframe_database as kdb
@@ -30,13 +30,13 @@ MIN_INLIERS = 50
 MAX_CANDIDATES = 5
 
 
-def _match_and_pnp(state: MapState, frame: FrameData, kf: int, K, bf, generator: torch.Generator | None = None,
+def _match_and_pnp(state: MapState, frame: FrameData, kf: int, K, bf, key: prng.Key | None = None,
                    sets=None):
     """Match the frame against candidate keyframe `kf`'s map points, run PnP
     RANSAC, optimize, widen by a guided projection search and optimize again.
     `sets`, if given, is a function of the correspondences' validity mask
-    that returns the (N_HYP, 6) hypothesis sets in place of the generator's
-    draw. Returns (ransac success, Tcw, frame_mp, n_inliers)."""
+    that returns the (N_HYP, 6) hypothesis sets in place of the key's draw.
+    Returns (ransac success, Tcw, frame_mp, n_inliers)."""
     N = frame.xy.shape[0]
     M = state.max_mp
     kf_mp = state.kf_mp[kf]
@@ -51,7 +51,7 @@ def _match_and_pnp(state: MapState, frame: FrameData, kf: int, K, bf, generator:
     has = frame_mp >= 0
     pw = state.mp_pos[torch.clamp(frame_mp, min=0).long()]
     inv_s2 = inv_level_sigma2(frame.xy.device)[torch.clamp(frame.level, 0, N_LEVELS - 1).long()]
-    res = pnp.pnp_ransac(pw, frame.xy, inv_s2, has, K, generator=generator, sets=None if sets is None else sets(has))
+    res = pnp.pnp_ransac(pw, frame.xy, inv_s2, has, K, key=key, sets=None if sets is None else sets(has))
 
     obs = make_obs_from_frame(frame.xy, frame.ur, frame.level, frame_mp, frame.kp_valid & res.inliers)
     Tcw, inlier_mask, n_inl = ba.pose_optimization(res.Tcw, state.mp_pos, obs, K, bf)
@@ -89,21 +89,17 @@ def relocalize(state: MapState, db: kdb.BowDatabase, voc: vocab_ops.Vocabulary, 
     """The strongest BoW candidates, at most 5, tried in order; the first
     with >= 50 inliers after refinement is accepted (src/Tracking.cc:1637-1644).
     `sets(kf, valid)` may give each candidate's hypothesis sets in place of
-    its generator's draw. Returns (ok, Tcw, frame_mp, ref_kf)."""
+    its key's draw. Returns (ok, Tcw, frame_mp, ref_kf)."""
     words = vocab_ops.assign_words(voc, frame.desc)
     scores, cand = kdb.detect_reloc_candidates(db, state, words, frame.kp_valid, voc.word_weight)
     sc, cd = sync.host_numpy(scores, cand)
     cand_ids = np.where(cd)[0]
     if len(cand_ids) == 0:
         return False, None, None, None
-    dev = frame.xy.device
     for kf in cand_ids[np.argsort(-sc[cand_ids])][:MAX_CANDIDATES]:
         kf = int(kf)
-        gen = None
-        if sets is None:
-            gen = torch.Generator(device=dev).manual_seed(frame_id * 97 + kf)
         kf_sets = None if sets is None else (lambda valid, kf=kf: sets(kf, valid))
-        _, Tcw, frame_mp, n_inl = _match_and_pnp(state, frame, kf, K, bf, gen, kf_sets)
+        _, Tcw, frame_mp, n_inl = _match_and_pnp(state, frame, kf, K, bf, prng.key(frame_id * 97 + kf), kf_sets)
         # Accept on the refined inlier count alone (the reference's nGood >=
         # 50): 50 observations inside the chi2 gate after 4 rounds of
         # re-classification are the pose verification.

@@ -54,7 +54,7 @@ import torch
 
 from .. import device as device_mod
 from .. import kernels, sync
-from ..ops import ba, lie, orb, twoview
+from ..ops import ba, lie, orb, prng, twoview
 from ..ops import vocab as vocab_ops
 from ..parallel import mesh as mesh_mod
 from ..runtime import native
@@ -916,8 +916,7 @@ class SlamSystem:
             steps += [
                 ("database add", lambda: kdb.add_keyframe_from_state(db, self.vocab, s1, 0)),
                 ("database add and detect", lambda: kdb.add_and_detect(db, self.vocab, s1, 1)),
-                ("sim3", lambda: lc.compute_sim3(s1, 1, 0, K, torch.Generator(device=dev).manual_seed(131),
-                                                 fix_scale=not mono, voc=self.vocab)),
+                ("sim3", lambda: lc.compute_sim3(s1, 1, 0, K, prng.key(0), fix_scale=not mono, voc=self.vocab)),
                 ("loop correction", lambda: lc.correct_loop(s1, 1, 0, eye)),
                 ("fuse sizes", lambda: sync.host(torch.stack(lc._fuse_sizes(s1, 1, 0)))),
             ]
@@ -1157,8 +1156,8 @@ class SlamSystem:
         if sync.host(torch.sum(m.ok)) < 70:
             self.init_ref = frame if enough_keypoints() else None
             return False
-        gen = torch.Generator(device=self.device).manual_seed(self.frame_id)
-        res = twoview.initialize_two_view(self.init_ref.xy, frame.xy[m.idx], m.ok, self._K, generator=gen)
+        res = twoview.initialize_two_view(self.init_ref.xy, frame.xy[m.idx], m.ok, self._K,
+                                          key=prng.key(self.frame_id))
         if not sync.host(res.success):
             return False
         self.map, _, _, _, _ = initialization.create_initial_map_mono(self.map, self.init_ref, frame, m.idx, res,

@@ -7,10 +7,9 @@ with the known intrinsics; the N_HYP hypotheses are scored in one batch with
 the reference's scale-dependent reprojection test (`CheckInliers`,
 src/PnPsolver.cc:308-337).
 
-The reference draws the hypotheses' point sets with Gumbel noise from a JAX
-key, a stream PyTorch cannot reproduce: `pnp_ransac` takes a
-`torch.Generator` to draw its own, or the (N_HYP, 6) sets themselves, which
-the parity tests take from the reference.
+The hypotheses' point sets are the reference's own draw: Gumbel top-6 under
+a `jax.random` key, reproduced exactly by `ops/prng.py` from the same key.
+`pnp_ransac` takes the key, or the (N_HYP, 6) sets themselves.
 """
 
 from __future__ import annotations
@@ -19,8 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import lie
-from .topk import random_subsets
+from . import lie, prng
 
 N_HYP = 256
 SAMPLE = 6
@@ -61,10 +59,10 @@ def _dlt_pose(pw: torch.Tensor, uv: torch.Tensor, K: torch.Tensor) -> torch.Tens
     return lie.make_se3(lie.project_so3(P[..., :3]), P[..., 3])
 
 
-def sample_sets(valid: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def sample_sets(valid: torch.Tensor, key: prng.Key) -> torch.Tensor:
     """(N_HYP, SAMPLE) correspondence indices per hypothesis, distinct and
-    valid where SAMPLE are valid."""
-    return random_subsets(valid, N_HYP, SAMPLE, generator)
+    valid where SAMPLE are valid: the reference's `_sample_sets` of `key`."""
+    return prng.gumbel_topk_sets(key, valid, N_HYP, SAMPLE)
 
 
 def hypothesis_inliers(T, pw, uv, inv_sigma2, valid, K, chi2_th: float = 5.991) -> torch.Tensor:
@@ -79,15 +77,15 @@ def hypothesis_inliers(T, pw, uv, inv_sigma2, valid, K, chi2_th: float = 5.991) 
 
 
 def pnp_ransac(pw: torch.Tensor, uv: torch.Tensor, inv_sigma2: torch.Tensor, valid: torch.Tensor,
-               K: torch.Tensor, generator: torch.Generator | None = None, sets: torch.Tensor | None = None,
+               K: torch.Tensor, key: prng.Key | None = None, sets: torch.Tensor | None = None,
                chi2_th: float = 5.991) -> PnPResult:
     """Batched-hypothesis RANSAC over pw (N,3), uv (N,2), inv_sigma2 (N,)
     and valid (N,): N_HYP DLT poses scored at once, the first best wins.
-    Give the hypothesis sets (N_HYP, SAMPLE) or a generator to draw them."""
+    Give the hypothesis sets (N_HYP, SAMPLE) or the key to draw them from."""
     if sets is None:
-        if generator is None:
-            raise ValueError("pnp_ransac needs a torch.Generator or the hypothesis sets")
-        sets = sample_sets(valid, generator)
+        if key is None:
+            raise ValueError("pnp_ransac needs a key or the hypothesis sets")
+        sets = sample_sets(valid, key)
     sets = sets.long()
     T = _dlt_pose(pw[sets], uv[sets], K)  # (H,4,4)
     inls = hypothesis_inliers(T, pw, uv, inv_sigma2, valid, K, chi2_th)

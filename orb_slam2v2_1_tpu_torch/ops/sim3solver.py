@@ -5,10 +5,9 @@ and `Optimizer::OptimizeSim3`): Horn's quaternion absolute orientation run as
 N_HYP hypotheses of 3 correspondences each in one batch, with the mutual
 reprojection inlier check. Scale is fixed to 1 for stereo/RGB-D.
 
-The reference draws its hypothesis sets from a JAX random key; that stream
-cannot be reproduced here, so `sim3_ransac` takes a `torch.Generator`
-(Gumbel top-3 per hypothesis, as the reference) or the (N_HYP, 3) index sets
-themselves.
+The hypothesis sets are the reference's own draw: Gumbel top-3 under a
+`jax.random` key, reproduced exactly by `ops/prng.py` from the same key.
+`sim3_ransac` takes the key, or the (N_HYP, 3) index sets themselves.
 """
 
 from __future__ import annotations
@@ -17,8 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import lie
-from .topk import random_subsets
+from . import lie, prng
 
 N_HYP = 256
 CHI2_SIM3 = 9.210  # 2-dof 99% gate, both directions
@@ -94,24 +92,24 @@ def _reproj(S12, p1_cam, p2_cam, uv1, uv2, K):
     return _project(_apply(S12, p2_cam), K) - uv1, _project(_apply(S21, p1_cam), K) - uv2
 
 
-def hypothesis_sets(valid: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def hypothesis_sets(valid: torch.Tensor, key: prng.Key) -> torch.Tensor:
     """(N_HYP, 3) indices of 3 distinct valid correspondences per
-    hypothesis: the top 3 of Gumbel noise over the valid ones."""
-    return random_subsets(valid, N_HYP, 3, generator)
+    hypothesis: the reference's top 3 of Gumbel noise under `key`."""
+    return prng.gumbel_topk_sets(key, valid, N_HYP, 3)
 
 
 def sim3_ransac(p1_cam, p2_cam, uv1, uv2, sigma2_1, sigma2_2, valid, K,
-                generator: torch.Generator | None = None, sets: torch.Tensor | None = None,
+                key: prng.Key | None = None, sets: torch.Tensor | None = None,
                 fix_scale: bool = True) -> Sim3Result:
     """RANSAC over N_HYP Horn hypotheses with the reference's thresholds:
     chi2 9.210 (2 dof, 99%) on both reprojections, a refit on the consensus
     set, success at >= 20 inliers. p*_cam (N,3) matched points in each camera
     frame, uv* (N,2) observed pixels, sigma2_* (N,) level variances. Give the
-    hypothesis index sets (N_HYP, 3) or a generator to draw them from."""
+    hypothesis index sets (N_HYP, 3) or the key to draw them from."""
     if sets is None:
-        if generator is None:
-            raise ValueError("sim3_ransac needs a torch.Generator or the hypothesis sets")
-        sets = hypothesis_sets(valid, generator)
+        if key is None:
+            raise ValueError("sim3_ransac needs a key or the hypothesis sets")
+        sets = hypothesis_sets(valid, key)
     sets = sets.long()
 
     def inliers_of(S12):

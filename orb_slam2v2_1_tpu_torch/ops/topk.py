@@ -26,18 +26,6 @@ def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def random_subsets(valid: torch.Tensor, n_sets: int, k: int, generator: torch.Generator) -> torch.Tensor:
-    """(n_sets, k) indices of k distinct entries of the 1-D mask `valid` per
-    set: the top k of Gumbel noise drawn from `generator`, -inf where
-    invalid (a set takes invalid entries, in index order, only when fewer
-    than k are valid). The RANSAC samplers' draw; the reference draws the
-    same way from a JAX key, a stream the port cannot reproduce."""
-    u = torch.rand((n_sets, valid.shape[0]), generator=generator, device=generator.device).to(valid.device)
-    g = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0 - 1e-7)))
-    g = torch.where(valid[None, :], g, float("-inf"))
-    return stable_topk(g, k)[1]
-
-
 def set_drop(x: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
     """Out-of-place `x.at[idx].set(values, mode="drop")` along axis 0 for
     indices in [0, len(x)]: writes aimed at len(x) land on a parked sentinel

@@ -9,17 +9,16 @@ of each is refit by least squares over its consensus set, RH = SH / (SH + SF)
 are audited by a batched `check_rt`; the winner must dominate and see 2.5
 degrees of parallax.
 
-The reference draws the eight-point sets with Gumbel noise from a JAX key, a
-stream PyTorch cannot reproduce: `initialize_two_view` takes a
-`torch.Generator` to draw its own (`sample_sets`, H's sets first), or the two
-(N_RANSAC, 8) sets themselves, which the parity tests take from the
-reference. The eight-point solves are float64: a set of eight matches on or
-near a plane leaves the F system with a near-double null space, whose float32
-null vector two LAPACK builds give 1.4e-4 apart (the float64 one is within
-1e-4 of the reference's float32 one). Everything else is float32, as in the
-reference. Singular vectors and eigenvectors come with a sign of LAPACK's
-choosing, which H (scaled by its last entry), F (squared in every score) and
-the motion sets do not see.
+The eight-point sets are the reference's own draw: Gumbel top-8 under the two
+halves of a split `jax.random` key (H's sets from the first), reproduced
+exactly by `ops/prng.py`. `initialize_two_view` takes the key, or the two
+(N_RANSAC, 8) sets themselves. The eight-point solves are float64: a set of
+eight matches on or near a plane leaves the F system with a near-double null
+space, whose float32 null vector two LAPACK builds give 1.4e-4 apart (the
+float64 one is within 1e-4 of the reference's float32 one). Everything else
+is float32, as in the reference. Singular vectors and eigenvectors come with
+a sign of LAPACK's choosing, which H (scaled by its last entry), F (squared
+in every score) and the motion sets do not see.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .topk import random_subsets
+from . import prng
 from .triangulate import projection_matrix, triangulate
 
 N_RANSAC = 200
@@ -66,9 +65,10 @@ def _normalize(x: torch.Tensor, valid: torch.Tensor):
     return xn, T
 
 
-def sample_sets(valid: torch.Tensor, generator: torch.Generator, k: int = 8) -> torch.Tensor:
-    """(N_RANSAC, k) indices of distinct valid matches per hypothesis."""
-    return random_subsets(valid, N_RANSAC, k, generator)
+def sample_sets(valid: torch.Tensor, key: prng.Key, k: int = 8) -> torch.Tensor:
+    """(N_RANSAC, k) indices of distinct valid matches per hypothesis: the
+    reference's `_sample_sets` of `key`."""
+    return prng.gumbel_topk_sets(key, valid, N_RANSAC, k)
 
 
 def _h_rows(x1n: torch.Tensor, x2n: torch.Tensor):
@@ -272,15 +272,15 @@ def _h_motions(H: torch.Tensor, K: torch.Tensor):
 
 
 def initialize_two_view(x1: torch.Tensor, x2: torch.Tensor, valid: torch.Tensor, K: torch.Tensor,
-                        generator: torch.Generator | None = None, sets=None) -> TwoViewResult:
+                        key: prng.Key | None = None, sets=None) -> TwoViewResult:
     """Initializer::Initialize (src/Initializer.cc:44-122) on x1 (N,2)
     undistorted pixels of the reference frame, x2 (N,2) their matches in the
     current frame, and valid (N,). Give the (sets_h, sets_f) pair of
-    (N_RANSAC, 8) hypothesis sets, or a generator to draw them."""
+    (N_RANSAC, 8) hypothesis sets, or the key whose split draws them."""
     if sets is None:
-        if generator is None:
-            raise ValueError("initialize_two_view needs a torch.Generator or the hypothesis sets")
-        sets = (sample_sets(valid, generator), sample_sets(valid, generator))
+        if key is None:
+            raise ValueError("initialize_two_view needs a key or the hypothesis sets")
+        sets = tuple(sample_sets(valid, k) for k in prng.split(key))
     sets_h, sets_f = (torch.as_tensor(s, device=x1.device).long() for s in sets)
     x1n, T1 = _normalize(x1, valid)
     x2n, T2 = _normalize(x2, valid)

@@ -213,7 +213,7 @@ class SlamServer:
                            if os.path.exists(VOCAB_NPZ) else None)
         return self._vocab
 
-    def merge_clients(self, cid_a: int, cid_b: int, K, generator: torch.Generator | None = None, vocab=None,
+    def merge_clients(self, cid_a: int, cid_b: int, K, key: tuple[int, int] | None = None, vocab=None,
                       top_pairs: int = 5, joint_optimize: bool = True,
                       sim3_sets: Callable[[torch.Tensor], torch.Tensor] | None = None) -> Optional[MapState]:
         """Merge client B's map into client A's world (the operator's
@@ -228,12 +228,11 @@ class SlamServer:
            essential-graph optimization and SearchAndFuse's duplicate merge
            (src/LoopClosing.cc:453-622).
 
-        The RANSAC draws its hypothesis sets from `generator` (default: seed
-        0 on the server's device), from the same generator state for every
-        pair, as the reference draws every pair from one key; or
-        `sim3_sets(valid)` gives them. Returns the merged map, or None."""
+        The RANSAC draws every pair's hypothesis sets from the one `key`
+        (default `prng.key(0)`), as the reference does; or `sim3_sets(valid)`
+        gives them. Returns the merged map, or None."""
         from ..models import loop_closing as lc
-        from ..ops import lie, matching, sim3solver
+        from ..ops import lie, matching, prng, sim3solver
 
         self.last_merge_fused = self.last_merge_inliers = 0
         a = self._client(cid_a).state
@@ -243,9 +242,8 @@ class SlamServer:
             return None
         dev = self.device
         K = torch.as_tensor(K, dtype=torch.float32).to(dev)
-        if generator is None and sim3_sets is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        gen_state = generator.get_state() if generator is not None else None
+        if key is None:
+            key = prng.key(0)
 
         # --- 1. BoW candidate ranking (one product on the host, as the reference) ---
         vocab = vocab or self._get_vocab()
@@ -275,11 +273,7 @@ class SlamServer:
             p1 = a.mp_pos[mp_a] @ pose_a[:3, :3].T + pose_a[:3, 3]
             p2 = b.mp_pos[mp_b] @ pose_b[:3, :3].T + pose_b[:3, 3]
             ones = torch.ones(p1.shape[0], dtype=torch.float32, device=dev)
-            if sim3_sets is not None:
-                sets = sim3_sets(m.ok)
-            else:
-                generator.set_state(gen_state)
-                sets = sim3solver.hypothesis_sets(m.ok, generator)
+            sets = sim3solver.hypothesis_sets(m.ok, key) if sim3_sets is None else sim3_sets(m.ok)
             res = sim3solver.sim3_ransac(p1, p2, a.kf_xy[ka], b.kf_xy[kb][m.idx], ones, ones, m.ok, K,
                                          sets=sets, fix_scale=True)
             ok, n_inl = sync.host(torch.stack([res.success.to(torch.int32), res.n_inliers]))

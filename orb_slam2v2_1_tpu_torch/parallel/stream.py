@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import sync
+from ..ops import prng
 from ..runtime.native import NativeQueue, NativeWorker, TcpClient, TcpServer
 from . import server as server_mod
 
@@ -294,8 +295,7 @@ class MapServerNode:
         with self._lock:
             if other != NO_MERGE:
                 t0 = time.perf_counter()
-                gen = torch.Generator(device=self.device).manual_seed(0)
-                merged = self.server.merge_clients(cid, other, self._K, gen)
+                merged = self.server.merge_clients(cid, other, self._K, prng.key(0))
                 self.last_merge = {"ms": (time.perf_counter() - t0) * 1e3, "accepted": merged is not None,
                                    "inliers": self.server.last_merge_inliers,
                                    "fused": self.server.last_merge_fused}

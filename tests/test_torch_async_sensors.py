@@ -5,7 +5,7 @@
   th_depth=100).
 - Mono: 18 frames of the lateral sweep at 320x240 (fx=400, 1000 features:
   at fx=275 neither package initializes on the desk), the port drawing the
-  reference's two-view RANSAC sets for each frame's seed, as
+  reference's two-view RANSAC sets (its sampler) for each frame's key, as
   `test_torch_mono.py` does.
 The same `None` pattern, poses within 2 mm / 0.05 deg, equal keyframe counts
 and `stats()` counters.
@@ -52,13 +52,6 @@ def test_stereo_async_parity(stereo_runs):
     assert_runs_agree(jslam, tslam, jout, tout)
 
 
-def ref_sets(valid, frame_key):
-    """The reference's two (N_RANSAC, 8) two-view draws for jax.random.key(frame_key)."""
-    k_h, k_f = jax.random.split(jax.random.key(frame_key))
-    v = jnp.asarray(valid)
-    return tuple(np.array(jtv._sample_sets(k, v, jtv.N_RANSAC)) for k in (k_h, k_f))
-
-
 @pytest.fixture(scope="module")
 def mono_runs():
     imgs, _, _ = synthetic.desk_frames(config.SlamConfig(**MONO_KW), synthetic.lateral_trajectory(100)[:N_MONO],
@@ -66,13 +59,12 @@ def mono_runs():
     frames = [(img, None) for img in imgs.numpy()]
     jslam, tslam = pair("MONOCULAR", MONO_KW)
     real = twoview.sample_sets
-    drawn = {}
 
-    def reference_draw(valid, generator, k=8):
-        # The generator is seeded by the frame id: H's sets first, then F's.
-        seed = generator.initial_seed()
-        drawn[seed] = drawn.get(seed, -1) + 1
-        return torch.from_numpy(ref_sets(valid.numpy(), seed)[drawn[seed]])
+    def reference_draw(valid, key, k=8):
+        # The reference's own sampler on the same key (a half of the split
+        # of jax.random.key(frame id)).
+        jkey = jax.random.wrap_key_data(jnp.asarray(key, jnp.uint32))
+        return torch.from_numpy(np.array(jtv._sample_sets(jkey, jnp.asarray(valid.numpy()), jtv.N_RANSAC, k)))
 
     try:
         jout = run_settled(jslam, frames, lambda a, b, ts: jslam.track_monocular(a, ts))

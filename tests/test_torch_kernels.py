@@ -284,7 +284,7 @@ class TestOnCard:
         hypothesis sets: the same verdict, inliers within 2, pose within
         1 mm / 0.05 deg."""
         from orb_slam2v2_1_tpu_torch.models import frontend, map_state, offline, relocalization, tracking
-        from orb_slam2v2_1_tpu_torch.ops import orb, pnp
+        from orb_slam2v2_1_tpu_torch.ops import orb, pnp, prng
         from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
         cfg = config.SlamConfig(fx=275.0, fy=275.0, cx=160.0, cy=120.0, width=320, height=240, n_features=500,
@@ -298,7 +298,7 @@ class TestOnCard:
         kf = int(torch.argmax((state.kf_frame_id == 9).to(torch.int32)))
 
         def sets(valid):
-            return pnp.sample_sets(valid.cpu(), torch.Generator().manual_seed(7)).to(valid.device)
+            return pnp.sample_sets(valid.cpu(), prng.key(7)).to(valid.device)
 
         ref = relocalization._match_and_pnp(state, frame, kf, K, 44.0, sets=sets)
         g_state = map_state.from_numpy(map_state.to_numpy(state), device=cuda_device)
@@ -316,7 +316,7 @@ class TestOnCard:
     def test_pnp_eigh_on_card(self, cuda_device, rng):
         """The batched float64 eigen solve of the DLT on the card against the
         CPU: the same inlier sets for well-conditioned (exact) samples."""
-        from orb_slam2v2_1_tpu_torch.ops import pnp
+        from orb_slam2v2_1_tpu_torch.ops import pnp, prng
 
         n = 300
         pc = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(2, 6, n)], -1)
@@ -325,7 +325,7 @@ class TestOnCard:
         args = [torch.from_numpy(a.astype(np.float32)) for a in (pc, uv, np.ones(n), np.ones(n))]
         args[3] = args[3] > 0
         K = torch.tensor([300.0, 300.0, 160.0, 120.0])
-        sets = pnp.sample_sets(args[3], torch.Generator().manual_seed(1))
+        sets = pnp.sample_sets(args[3], prng.key(1))
         ref = pnp.pnp_ransac(*args, K, sets=sets)
         got = pnp.pnp_ransac(*(a.to(cuda_device) for a in args), K.to(cuda_device), sets=sets.to(cuda_device))
         assert bool(got.success) and bool(ref.success) and int(got.n_inliers) == int(ref.n_inliers) == 240

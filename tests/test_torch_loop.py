@@ -33,7 +33,7 @@ from orb_slam2v2_1_tpu.ops import vocab as jvocab
 from orb_slam2v2_1_tpu_torch.models import keyframe_database as kdb
 from orb_slam2v2_1_tpu_torch.models import loop_closing as lc
 from orb_slam2v2_1_tpu_torch.models import map_state
-from orb_slam2v2_1_tpu_torch.ops import hamming, lie, pose_graph, sim3solver, vocab
+from orb_slam2v2_1_tpu_torch.ops import hamming, lie, pose_graph, prng, sim3solver, vocab
 
 torch.set_num_threads(2)
 
@@ -575,16 +575,16 @@ def test_sim3_ransac_parity_with_injected_sets(rng, fix_scale):
 
 
 def test_sim3_ransac_generator_repeatable(rng):
-    """With a generator: valid sets only, the same result for the same seed,
-    and the known Sim3 recovered."""
+    """With a key: valid sets only, the reference's sets of the same key, the
+    same result for the same key, and the known Sim3 recovered."""
     p1, p2, uv1, uv2, s1, s2, valid, S12 = _sim3_problem(rng)
     args = [T(x) for x in (p1, p2, uv1, uv2, s1, s2, valid, K_NP)]
-    gen = torch.Generator().manual_seed(11)
-    sets = sim3solver.hypothesis_sets(T(valid), gen)
+    sets = sim3solver.hypothesis_sets(T(valid), prng.key(11))
     assert sets.shape == (sim3solver.N_HYP, 3) and T(valid)[sets].all()
     assert (sets.sort(dim=1)[0].diff(dim=1) > 0).all()
-    a = sim3solver.sim3_ransac(*args, generator=torch.Generator().manual_seed(11))
-    b = sim3solver.sim3_ransac(*args, generator=torch.Generator().manual_seed(11))
+    np.testing.assert_array_equal(sets.numpy(), _reference_sets(jax.random.key(11), valid))
+    a = sim3solver.sim3_ransac(*args, key=prng.key(11))
+    b = sim3solver.sim3_ransac(*args, key=prng.key(11))
     assert torch.equal(a.S12, b.S12) and bool(a.success)
     np.testing.assert_allclose(a.S12.numpy(), S12, atol=2e-2)
     with pytest.raises(ValueError):
@@ -736,6 +736,26 @@ def test_compute_sim3_parity(loop_states, loop_arrays, vocs):
     m = jlc.match_keyframes(jstate, jnp.int32(16), jnp.int32(0), jvoc)
     sets = _reference_sets(key, np.asarray(m.ok))
     got = lc.compute_sim3(tstate, 16, 0, T(K_NP), fix_scale=True, voc=tvoc, sets=T(sets))
+    _assert_sim3_alike(got, ref, loop_arrays)
+
+
+def test_compute_sim3_parity_own_draws(loop_states, loop_arrays, vocs):
+    """The same without injected sets: the port's RANSAC draws from
+    `prng.key(16 * 131 + 0)`, as the loop closer seeds it, and its result is
+    the injected run's, bit for bit."""
+    jstate, tstate = loop_states
+    jvoc, tvoc = vocs
+    key = jax.random.key(16 * 131)
+    ref = jlc.compute_sim3(jstate, jnp.int32(16), jnp.int32(0), J(K_NP), key, fix_scale=True, voc=jvoc)
+    got = lc.compute_sim3(tstate, 16, 0, T(K_NP), prng.key(16 * 131), fix_scale=True, voc=tvoc)
+    _assert_sim3_alike(got, ref, loop_arrays)
+    sets = _reference_sets(key, lc.match_keyframes(tstate, 16, 0, tvoc).ok.numpy())
+    injected = lc.compute_sim3(tstate, 16, 0, T(K_NP), fix_scale=True, voc=tvoc, sets=T(sets))
+    for a, b in zip(got, injected):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _assert_sim3_alike(got, ref, loop_arrays):
     assert bool(ref[0]) and bool(got[0])
     np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), atol=1e-4)
     assert int(got[2]) == int(ref[2]) and int(got[3]) == int(ref[3]) >= 40
@@ -987,7 +1007,7 @@ def test_compute_sim3_on_card(cuda_device, loop_arrays, vocs):
     cpu_state, cpu_voc = tstate_of(arrays), vocs[1]
     gpu_state = map_state.from_numpy(arrays, device=cuda_device)
     gpu_voc = vocab.load_vocabulary(np.load(VOCAB_NPZ), device=cuda_device)
-    sets = sim3solver.hypothesis_sets(lc.match_keyframes(cpu_state, 16, 0, cpu_voc).ok, torch.Generator().manual_seed(16 * 131))
+    sets = sim3solver.hypothesis_sets(lc.match_keyframes(cpu_state, 16, 0, cpu_voc).ok, prng.key(16 * 131))
     ref = lc.compute_sim3(cpu_state, 16, 0, T(K_NP), voc=cpu_voc, sets=sets)
     kernels.reset_launch_counts()
     got = lc.compute_sim3(gpu_state, 16, 0, T(K_NP).to(cuda_device), voc=gpu_voc, sets=sets.to(cuda_device))
@@ -995,9 +1015,10 @@ def test_compute_sim3_on_card(cuda_device, loop_arrays, vocs):
     assert bool(got[0]) and bool(ref[0])
     np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].numpy(), atol=1e-4)
     assert int(got[2]) == int(ref[2]) and int(got[3]) == int(ref[3])
-    # With a generator on the card the draws are the card's own: still a success.
-    gen = torch.Generator(device=cuda_device).manual_seed(16 * 131)
-    assert bool(lc.compute_sim3(gpu_state, 16, 0, T(K_NP).to(cuda_device), gen, voc=gpu_voc)[0])
+    # With a key on the card the draws are the CPU's: the same result.
+    own = lc.compute_sim3(gpu_state, 16, 0, T(K_NP).to(cuda_device), prng.key(16 * 131), voc=gpu_voc)
+    assert bool(own[0]) and int(own[2]) == int(ref[2]) and int(own[3]) == int(ref[3])
+    np.testing.assert_allclose(own[1].cpu().numpy(), ref[1].numpy(), atol=1e-4)
 
 
 @pytest.mark.cuda

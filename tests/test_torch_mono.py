@@ -16,8 +16,9 @@ port. Tolerances:
 - `match_mutual`, `match_for_initialization`: exact;
 - `create_initial_map_mono`: integer fields exact, floats 1e-5;
 - `SlamSystem` at 320x240 (fx=fy=400, 1000 features, bf=0) on 18 frames of
-  `lateral_trajectory(100)` over the desk, the port drawing the reference's
-  RANSAC sets: the same initialization frame, the same tracked frames and
+  `lateral_trajectory(100)` over the desk, once with the reference's sampler
+  injected in place of the port's and once with the port's own draws from
+  the same keys: the same initialization frame, the same tracked frames and
   keyframe count, poses within 2 mm (unit-median-depth gauge) / 0.05 deg.
   At fx=275 the desk's texture is too fine for the level-0 initialization
   search: neither package finds 70 matches between any two of the first ten
@@ -41,7 +42,7 @@ from orb_slam2v2_1_tpu.ops import twoview as jtv
 from orb_slam2v2_1_tpu.utils import config as jconfig
 
 from orb_slam2v2_1_tpu_torch.models import frontend, initialization, map_state, system, tracking
-from orb_slam2v2_1_tpu_torch.ops import image, matching, orb, twoview
+from orb_slam2v2_1_tpu_torch.ops import image, matching, orb, prng, twoview
 from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
 torch.set_num_threads(2)
@@ -261,13 +262,13 @@ def test_initialize_two_view_synthetic(problem):
 
 def test_sample_sets_valid_and_repeatable():
     valid = torch.from_numpy(np.random.default_rng(2).uniform(size=300) > 0.3)
-    a = twoview.sample_sets(valid, torch.Generator().manual_seed(4))
-    b = twoview.sample_sets(valid, torch.Generator().manual_seed(4))
-    c = twoview.sample_sets(valid, torch.Generator().manual_seed(5))
+    a = twoview.sample_sets(valid, prng.key(4))
+    b = twoview.sample_sets(valid, prng.key(4))
+    c = twoview.sample_sets(valid, prng.key(5))
     assert a.shape == (twoview.N_RANSAC, 8) and torch.equal(a, b) and not torch.equal(a, c)
     assert bool(valid[a].all())
     assert all(len(set(row.tolist())) == 8 for row in a)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="key"):
         twoview.initialize_two_view(torch.zeros(300, 2), torch.zeros(300, 2), valid, torch.ones(4))
 
 
@@ -407,14 +408,12 @@ def mono_runs(desk):
     tslam._initialize = keep_initial_map(tslam, tslam._initialize, map_state.to_numpy)
     jout = [jslam.track_monocular(imgs[i], i * 0.1) for i in range(N_FRAMES)]
     real = twoview.sample_sets
-    drawn = {}
 
-    def reference_draw(valid, generator, k=8):
-        # The generator is seeded by the frame id: H's sets first, then F's,
-        # each from the reference's split of jax.random.key(frame id).
-        seed = generator.initial_seed()
-        drawn[seed] = drawn.get(seed, -1) + 1
-        return t(ref_sets(valid.numpy(), seed)[drawn[seed]])
+    def reference_draw(valid, key, k=8):
+        # The reference's own sampler on the same key (a half of the split
+        # of jax.random.key(frame id)).
+        jkey = jax.random.wrap_key_data(jnp.asarray(key, jnp.uint32))
+        return t(jtv._sample_sets(jkey, jnp.asarray(valid.numpy()), jtv.N_RANSAC, k))
 
     twoview.sample_sets = reference_draw
     try:
@@ -433,6 +432,14 @@ def assert_poses_close(got, ref, mm=2.0, deg=0.05):
     assert max(ang) <= deg, ang
 
 
+@pytest.fixture(scope="module")
+def mono_run_own_draws(desk):
+    """The port's SlamSystem on the same frames with its own draws."""
+    imgs, _ = desk
+    tslam = system.SlamSystem(config=config.SlamConfig(**KW), sensor=system.Sensor.MONOCULAR, device="cpu")
+    return tslam, [tslam.track_monocular(imgs[i], i * 0.1) for i in range(N_FRAMES)]
+
+
 def test_mono_system_parity(mono_runs):
     jslam, tslam, jout, tout, _ = mono_runs
     pattern = [o is not None for o in jout]
@@ -443,6 +450,21 @@ def test_mono_system_parity(mono_runs):
     assert_poses_close([o for o in tout if o is not None], [o for o in jout if o is not None])
     assert tslam.stats()["n_frames"] == jslam.stats()["n_frames"] == N_FRAMES
     assert tslam.init_ref is None and tslam.loop_closer is not None and not tslam.loop_closer.fix_scale
+
+
+def test_mono_system_parity_own_draws(mono_runs, mono_run_own_draws):
+    """Without the injection: the port's two-view RANSAC draws the
+    reference's sets from `prng.key(frame id)` itself, initializes on the
+    reference's frame and tracks the reference's frames, and its run equals
+    the injected one."""
+    jslam, tslam_injected, jout, tout_injected, _ = mono_runs
+    tslam, tout = mono_run_own_draws
+    pattern = [o is not None for o in jout]
+    assert [o is not None for o in tout] == pattern
+    assert tslam.n_kf_host == jslam.n_kf_host >= 3
+    assert_poses_close([o for o in tout if o is not None], [o for o in jout if o is not None])
+    for a, b in zip(tout, tout_injected):
+        assert (a is None) == (b is None) and (a is None or np.array_equal(a, b))
 
 
 def test_mono_system_initial_map_and_reset(mono_runs, desk):

@@ -8,8 +8,9 @@ at least every third frame, the shared vocabulary), carried across with
 the online entry point, `SlamSystem.track_rgbd`, after a blackout.
 
 The RANSAC draws its hypothesis sets from a JAX key in the reference and from
-a `torch.Generator` in the port; the tests inject the reference's sets.
-Tolerances, per test: hypothesis scores, inlier masks and sets exact; DLT
+the same key through `ops/prng.py` in the port; the parity tests run both
+with the reference's sets injected and with the port's own draws. Tolerances,
+per test: hypothesis scores, inlier masks and sets exact; DLT
 and RANSAC poses 1e-4 in translation and 5e-3 in rotation (`project_so3`
 amplifies float32 differences, ROADMAP queue 3) against the float64 solution
 of the same inputs, which the port computes, and within the reference's own
@@ -40,7 +41,7 @@ from orb_slam2v2_1_tpu.utils import config as jconfig
 
 from orb_slam2v2_1_tpu_torch.models import keyframe_database as kdb
 from orb_slam2v2_1_tpu_torch.models import map_state, relocalization, system, tracking
-from orb_slam2v2_1_tpu_torch.ops import lie, pnp, topk, vocab
+from orb_slam2v2_1_tpu_torch.ops import lie, pnp, prng, topk, vocab
 from orb_slam2v2_1_tpu_torch.utils import config, synthetic
 
 torch.set_num_threads(2)
@@ -228,16 +229,16 @@ def test_sets_with_few_valid_follow_the_tie_order(rng):
 
 
 def test_generator_sets_valid_and_repeatable(rng):
-    """With a generator: six distinct valid indices per set, the same sets
-    for the same seed, and a successful RANSAC on the problem."""
+    """With a key: six distinct valid indices per set, the reference's sets
+    of the same key, and a successful RANSAC on the problem."""
     pw, uv, inv_s2, valid, _ = pnp_problem(rng, noise=0.0)
-    sets = pnp.sample_sets(T(valid), torch.Generator().manual_seed(3))
+    sets = pnp.sample_sets(T(valid), prng.key(3))
     assert sets.shape == (pnp.N_HYP, pnp.SAMPLE) and T(valid)[sets].all()
     assert (sets.sort(dim=1)[0].diff(dim=1) > 0).all()
-    assert torch.equal(sets, pnp.sample_sets(T(valid), torch.Generator().manual_seed(3)))
-    res = pnp.pnp_ransac(T(pw), T(uv), T(inv_s2), T(valid), T(K_NP), generator=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(sets.numpy(), reference_sets(jax.random.key(3), valid))
+    res = pnp.pnp_ransac(T(pw), T(uv), T(inv_s2), T(valid), T(K_NP), key=prng.key(3))
     assert bool(res.success) and int(res.n_inliers) >= 150
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="key"):
         pnp.pnp_ransac(T(pw), T(uv), T(inv_s2), T(valid), T(K_NP))
 
 
@@ -247,6 +248,10 @@ def test_generator_sets_valid_and_repeatable(rng):
 
 @pytest.fixture(scope="module")
 def built():
+    return reference_map()
+
+
+def reference_map():
     """The reference's map and database after frames 0-15 (loop closer with
     the shared vocabulary, chunks of 5: keyframes at frames 0, 3, ..., 15),
     query frames built by the reference (earlier frames again, under new
@@ -295,17 +300,36 @@ def _close_counts(a, b):
     return abs(a - b) <= max(2, 0.03 * max(a, b))
 
 
+def _relocalize_both(b, query, sets):
+    jf, tf = b["queries"][query]
+    ref = jreloc.relocalize(b["jstate"], b["jdb"], b["jvoc"], jf, b["K"], jnp.float32(b["bf"]), query[1])
+    got = relocalization.relocalize(b["tstate"], b["tdb"], b["tvoc"], tf, b["tK"], b["bf"], query[1], sets=sets)
+    return ref, got
+
+
 @pytest.mark.parametrize("query", QUERIES)
 def test_relocalize_parity(built, query):
     """The whole candidate loop with the reference's sets: the same verdict
     and keyframe, inliers within 2, pose within 1 cm / 0.2 deg, and within
     10 cm of the orbit's ground truth (the map's world is the first camera;
     the reference's own pose is 4-8 cm off there)."""
+    ref, got = _relocalize_both(built, query, _reference_sets_for(query[1]))
+    _assert_relocalized_alike(ref, got, query)
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_relocalize_parity_own_draws(built, query):
+    """The same without injected sets: each candidate's RANSAC draws from
+    `prng.key(frame_id * 97 + kf)`, and the result is the injected run's."""
+    ref, got = _relocalize_both(built, query, None)
+    _assert_relocalized_alike(ref, got, query)
     b = built
-    jf, tf = b["queries"][query]
-    ref = jreloc.relocalize(b["jstate"], b["jdb"], b["jvoc"], jf, b["K"], jnp.float32(b["bf"]), query[1])
-    got = relocalization.relocalize(b["tstate"], b["tdb"], b["tvoc"], tf, b["tK"], b["bf"], query[1],
-                                    sets=_reference_sets_for(query[1]))
+    injected = relocalization.relocalize(b["tstate"], b["tdb"], b["tvoc"], b["queries"][query][1], b["tK"], b["bf"],
+                                         query[1], sets=_reference_sets_for(query[1]))
+    assert got[3] == injected[3] and torch.equal(got[1], injected[1]) and torch.equal(got[2], injected[2])
+
+
+def _assert_relocalized_alike(ref, got, query):
     assert ref[0] and got[0]
     assert got[3] == ref[3]
     _assert_pose_within(got[1].numpy(), np.asarray(ref[1]))
@@ -348,9 +372,9 @@ def test_match_and_pnp_parity(built, query):
 
 
 def test_relocalize_with_generator_and_black_frame(built):
-    """With its own draws (a generator per candidate) the port relocalizes
-    at least two of the three queries; a black frame has no candidate in
-    either package."""
+    """With its own draws (a key per candidate) the port relocalizes at
+    least two of the three queries; a black frame has no candidate in either
+    package."""
     b = built
     hits = [relocalization.relocalize(b["tstate"], b["tdb"], b["tvoc"], b["queries"][q][1], b["tK"], b["bf"], q[1])[0]
             for q in QUERIES]
@@ -370,28 +394,14 @@ def _gap(a, b):
     return 1e3 * np.linalg.norm(_centers([a]) - _centers([b])), np.degrees(np.arccos(np.clip(cos, -1, 1)))
 
 
-def test_blackout_then_relocalization():
-    """Frames 0-27 at fps=2, two black frames (lost, no reset: more than 5
-    keyframes), then frame 2 again: both packages relocalize on it (the
-    reference keyframe shares too little of that view), against the same
-    keyframe, to within RELOC_GT_M of the ground truth, and track the next
-    frame. At this size, with a keyframe every second frame on a turn in
-    place, both maps drift 0.30 m from the ground truth by frame 27
-    (relocalized poses: 0.15-0.17 m off), and the two trajectories drift
-    apart as the reference drifts from itself under noise (PERF.md).
-    Measured gap between the packages: under 0.2 mm up to frame 14, 4-9 mm
-    over frames 15-20, 14-56 mm over 21-27 (20.4 mm / 0.24 deg at 27), and
-    24.2 mm / 0.28 deg on the relocalized frame. So poses are compared over
-    frames 0-9 (2 mm / 0.05 deg); the relocalized pose may add to the gap
-    at frame 27 no more than relocalization's own tolerance, 1 cm /
-    0.2 deg; and the port's relocalization, run on the reference's map,
-    database and frame at that call with the reference's sets, gives the
-    reference's keyframe, inliers within 2 (3% above 100) and its pose
-    within 1 cm / 0.2 deg."""
+def blackout_runs():
+    """Both packages' SlamSystem through `test_blackout_then_relocalization`'s
+    frames: (jslam, tslam, jout, tout, the reference's relocalize calls,
+    ground truth). Each relocalize call: (ok, keyframe, Tcw, frame_mp, its
+    inputs but the vocabulary, as numpy)."""
     imgs, deps, gt = synthetic.orbit_frames(config.SlamConfig(**SYSTEM_KW), 28, device="cpu", total=321)
     imgs, deps = imgs.numpy(), deps.numpy()
-    kw = SYSTEM_KW
-    jcfg, tcfg = _pair(kw)
+    jcfg, tcfg = _pair(SYSTEM_KW)
     black = (np.zeros_like(imgs[0]), np.zeros_like(deps[0]))
     frames = list(zip(imgs[:28], deps[:28])) + [black, black, (imgs[2], deps[2]), (imgs[3], deps[3])]
     jslam = jsystem.SlamSystem(config=jcfg, sensor=jsystem.Sensor.RGBD)
@@ -414,6 +424,28 @@ def test_blackout_then_relocalization():
     finally:
         jreloc.relocalize = real
     tout = _run(tslam, frames)
+    return jslam, tslam, jout, tout, j_reloc, gt
+
+
+def test_blackout_then_relocalization():
+    """Frames 0-27 at fps=2, two black frames (lost, no reset: more than 5
+    keyframes), then frame 2 again: both packages relocalize on it (the
+    reference keyframe shares too little of that view), against the same
+    keyframe, to within RELOC_GT_M of the ground truth, and track the next
+    frame. At this size, with a keyframe every second frame on a turn in
+    place, both maps drift 0.30 m from the ground truth by frame 27
+    (relocalized poses: 0.15-0.17 m off), and the two trajectories drift
+    apart as the reference drifts from itself under noise (PERF.md).
+    Measured gap between the packages: under 0.2 mm up to frame 14, 4-9 mm
+    over frames 15-20, 14-56 mm over 21-27 (20.4 mm / 0.24 deg at 27), and
+    24.2 mm / 0.28 deg on the relocalized frame. So poses are compared over
+    frames 0-9 (2 mm / 0.05 deg); the relocalized pose may add to the gap
+    at frame 27 no more than relocalization's own tolerance, 1 cm /
+    0.2 deg; and the port's relocalization, run on the reference's map,
+    database and frame at that call with the reference's sets, gives the
+    reference's keyframe, inliers within 2 (3% above 100) and its pose
+    within 1 cm / 0.2 deg."""
+    jslam, tslam, jout, tout, j_reloc, gt = blackout_runs()
     for slam, out in ((jslam, jout), (tslam, tout)):
         assert all(o is not None for o in out[:28])
         assert out[28] is None and out[29] is None and out[30] is not None and out[31] is not None

@@ -5,7 +5,8 @@
   field (the npz wire format is the reference's: same names and dtypes).
 - `merge_clients` on two sessions of a shared scene built by the reference
   (`tests/test_server.py`'s `_session_map`), with the reference's Sim3
-  hypothesis sets injected into the port: the same merged map (every
+  hypothesis sets injected into the port and with the port's own draws
+  from the same key: the same merged map (every
   integer field exact, poses and points within 2 mm / 0.05 deg) and the same
   `last_merge_fused`; the capacity guard raises in both.
 - `MapServerNode` with port clients on loopback: the cases of
@@ -134,6 +135,19 @@ def test_merge_clients_parity(rng, joint):
     ref = js.merge_clients(1, 2, K, key, joint_optimize=joint)
     got = ts.merge_clients(1, 2, torch.from_numpy(np.array(K)), joint_optimize=joint,
                            sim3_sets=lambda valid: torch.from_numpy(_reference_sets(key, valid.numpy())))
+    _assert_merged_alike(ref, got, joint, ts, js)
+
+
+def test_merge_clients_parity_own_draws(rng):
+    """The same merge without injected sets: the port draws every pair's
+    sets from its default key, `prng.key(0)`, the reference's `key(0)`."""
+    js, ts = _servers_with_sessions(rng)
+    ref = js.merge_clients(1, 2, K, jax.random.key(0))
+    got = ts.merge_clients(1, 2, torch.from_numpy(np.array(K)))
+    _assert_merged_alike(ref, got, True, ts, js)
+
+
+def _assert_merged_alike(ref, got, joint, ts, js):
     assert ref is not None and got is not None
     r, g = _np(ref), map_state.to_numpy(got)
     assert int(g["n_kf"]) == int(r["n_kf"]) == 6
@@ -155,13 +169,13 @@ def test_merge_clients_parity(rng, joint):
 
 
 def test_merge_with_generator_and_capacity_guard(rng):
-    """The default generator merges, and again on the same server with the
+    """The default key merges, and again on the same server with the
     same result (the port's maps are updated out of place; the reference's
     merge donates buffers of its first session's map, and a second merge on
     its server fails). An empty session merges nothing; past capacity both
     raise."""
     js, ts = _servers_with_sessions(rng)
-    got = ts.merge_clients(1, 2, torch.from_numpy(np.array(K)))  # the default generator
+    got = ts.merge_clients(1, 2, torch.from_numpy(np.array(K)))  # the default key
     assert got is not None and int(got.n_kf) == 6
     again = ts.merge_clients(1, 2, torch.from_numpy(np.array(K)))
     for a, b in zip(map_state.to_numpy(got).values(), map_state.to_numpy(again).values()):

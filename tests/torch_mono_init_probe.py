@@ -11,15 +11,14 @@ its first camera, degraded with `default_rng(33)`, bf=0: what `evaluate.py`
 and `python -m orb_slam2v2_1_tpu_torch.evaluate` feed it) and go through
 three sync `SlamSystem(sensor=MONOCULAR)` runs:
   - the reference (JAX on the CPU) with its own RANSAC draws;
-  - the port on the CPU with its own draws (a generator seeded by the frame
-    id);
-  - the port on the CPU with the reference's draws for each frame key, as
-    `tests/test_torch_mono.py` injects them.
+  - the port on the CPU with its own draws (`ops/prng.py` from the
+    reference's key, `key(frame id)`);
+  - the port on the CPU with the reference's sampler injected on the same
+    keys, as `tests/test_torch_mono.py` injects it.
 With `--card`, the port also runs on the NVIDIA card on the same frames with
-its own draws (a CUDA generator seeded by the frame id), with the draws of a
-CPU generator of the same seed, and with the reference's draws; and once on
-the leg's frames rendered and degraded on the card, as the evaluate entry
-point feeds them there.
+its own draws and with the reference's sampler injected; and once on the
+leg's frames rendered and degraded on the card, as the evaluate entry point
+feeds them there.
 Each run prints every initialization attempt (frame, level-0 matches to the
 reference frame, success), the first pose, the tracked count and the
 scale-aligned ATE (`run_sequence`'s counting). Runs at the evaluate
@@ -65,13 +64,6 @@ def frames_of(n, device="cpu"):
     return imgs, poses
 
 
-def reference_sets(valid, frame_key):
-    """The reference's two (N_RANSAC, 8) draws for jax.random.key(frame_key)."""
-    k_h, k_f = jax.random.split(jax.random.key(frame_key))
-    v = jnp.asarray(valid)
-    return tuple(np.array(jtv._sample_sets(k, v, jtv.N_RANSAC)) for k in (k_h, k_f))
-
-
 def host(x):
     return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -114,23 +106,18 @@ def run(name, slam, init_mod, imgs, poses):
     return rec
 
 
-def port_run(name, device, imgs, poses, draw=None):
-    """The port's SlamSystem on `device`; `draw` ("cpu" or "reference")
-    replaces the draws of its generator by a CPU generator's of the same
-    seed or by the reference's for that frame key."""
-    real, drawn = twoview.sample_sets, {}
+def port_run(name, device, imgs, poses, reference_sampler=False):
+    """The port's SlamSystem on `device`; with `reference_sampler` the
+    reference's `_sample_sets` replaces the port's on the same key (a half
+    of the split of key(frame id))."""
+    real = twoview.sample_sets
 
-    def replaced(valid, generator, k=8):
-        seed = generator.initial_seed()
-        if draw == "cpu":
-            return real(valid, torch.Generator().manual_seed(seed), k)
-        # H's sets first, then F's, each from the reference's split of
-        # jax.random.key(frame id) (the port seeds its generator by it).
-        drawn[seed] = drawn.get(seed, -1) + 1
-        sets = reference_sets(valid.cpu().numpy(), seed)[drawn[seed]]
+    def replaced(valid, key, k=8):
+        jkey = jax.random.wrap_key_data(jnp.asarray(key, jnp.uint32))
+        sets = np.array(jtv._sample_sets(jkey, jnp.asarray(valid.cpu().numpy()), jtv.N_RANSAC, k))
         return torch.from_numpy(sets.astype(np.int64)).to(valid.device)
 
-    if draw is not None:
+    if reference_sampler:
         twoview.sample_sets = replaced
     try:
         return run(name, tsystem.SlamSystem(config=config.SlamConfig(**KW), sensor=tsystem.Sensor.MONOCULAR,
@@ -155,11 +142,10 @@ def main():
                     jsystem.SlamSystem(config=jconfig.SlamConfig(**KW), sensor=jsystem.Sensor.MONOCULAR),
                     jinit, [jnp.asarray(i) for i in imgs], poses),
                 port_run("port (CPU), its draws", "cpu", imgs, poses),
-                port_run("port (CPU), the reference's draws", "cpu", imgs, poses, "reference")]
+                port_run("port (CPU), the reference's sampler", "cpu", imgs, poses, True)]
         if args.card:
             recs += [port_run("port (card), its draws", "cuda", imgs, poses),
-                     port_run("port (card), a CPU generator's draws", "cuda", imgs, poses, "cpu"),
-                     port_run("port (card), the reference's draws", "cuda", imgs, poses, "reference")]
+                     port_run("port (card), the reference's sampler", "cuda", imgs, poses, True)]
             card_imgs, _ = frames_of(n, "cuda")
             diff = float((card_imgs.cpu() - torch.from_numpy(imgs)).abs().max())
             print(f"  frames rendered on the card: max |card - CPU| {diff} gray levels", flush=True)

@@ -10,7 +10,8 @@ the loop closure lands, so runs of the async + pipelined leg differ: this
 runs `chip_smoke.run_online_async` --runs times on the same rendered orbit,
 prints each run's line (phase 11's, none of its assertions applied, so a
 run that would fail the phase is recorded and the next one starts), with
-its loops, relocalizations and the decision vector of each lost frame, and
+its loops, relocalizations and the decision vector of each lost frame, the
+keypoints with a live map point in each keyframe of the final map, and
 the spread of the run's estimated camera centers by segment of the orbit. The
 orbit turns in place, so every true camera center coincides: a segment whose
 mean center sits away from the first segment's was displaced. With --out,
@@ -18,7 +19,10 @@ each run's poses go to DIR/online_run<k>.npz and its map (`save_map`) to
 DIR/online_map<k>.npz. With --loop-log each run also prints every loop
 detection round: its insertion count and keyframe, the live keyframes, the
 candidates, how many reached the 3-round consistency, and each Sim3 tried
-(candidate, accepted, inliers). With --events each run appends one JSON
+(candidate, accepted, inliers, total support, BoW matches, RANSAC success,
+RANSAC inliers), and, when none of the 3 strongest consistent candidates
+was accepted, each weaker one the closer does not try, tried for the log
+only ("untried": candidate, accepted, inliers, total support). With --events each run appends one JSON
 line to FILE: the keyframe centers (by insertion sequence) before and after
 every loop closure and every global-BA merge, each local BA's window (free
 and fixed keyframes, observations, cost, how far it moved each keyframe),
@@ -69,12 +73,13 @@ def main():
     if "--loop-log" in args:
         from orb_slam2v2_1_tpu_torch import sync
         from orb_slam2v2_1_tpu_torch.models import loop_closing as lc
+        from orb_slam2v2_1_tpu_torch.ops import prng
 
         detect, consistent, sim3 = lc.LoopCloser.detect_loop, lc.LoopCloser._consistent, lc.compute_sim3
 
         def logged_detect(self, state, kf_id, n_kf):
             rounds.append({"count": self.kf_counter + 1, "kf": int(kf_id), "n_kf": n_kf, "cands": None,
-                           "consistent": None, "sim3": []})
+                           "consistent": None, "sim3": [], "untried": []})
             return detect(self, state, kf_id, n_kf)
 
         def logged_consistent(self, cands, C):
@@ -83,13 +88,46 @@ def main():
             return out
 
         def logged_sim3(state, kf_cur, kf_cand, *a, **k):
+            tries.clear()
             out = sim3(state, kf_cur, kf_cand, *a, **k)
             if rounds:
-                rounds[-1]["sim3"].append((int(kf_cand), bool(sync.host(out[0])), int(sync.host(out[2]))))
+                rounds[-1]["sim3"].append((int(kf_cand), bool(sync.host(out[0])), int(sync.host(out[2])),
+                                           int(sync.host(out[3])), *tries))
+            return out
+
+        tries = []
+        match_kf, ransac = lc.match_keyframes, lc.sim3solver.sim3_ransac
+
+        def logged_match(*a, **k):
+            m = match_kf(*a, **k)
+            tries.append(int(sync.host(m.ok.sum())))
+            return m
+
+        def logged_ransac(*a, **k):
+            res = ransac(*a, **k)
+            tries.extend((bool(sync.host(res.success)), int(sync.host(res.n_inliers))))
+            return res
+
+        try_candidates = lc.LoopCloser._try_candidates
+
+        def logged_try(self, state, kf_id, cands, scores, consistent):
+            # The closer tries the 3 strongest consistent candidates; the
+            # others are tried here too, for the log only.
+            out = try_candidates(self, state, kf_id, cands, scores, consistent)
+            rest = sorted(consistent, key=lambda gi: -scores[cands[gi]])[3:]
+            if out is None and rest and rounds:
+                for gi in rest:
+                    c = int(cands[gi])
+                    r = sim3(state, kf_id, c, self.K, prng.key(kf_id * 131 + c), fix_scale=self.fix_scale,
+                             voc=self.vocab)
+                    rounds[-1]["untried"].append((c, bool(sync.host(r[0])), int(sync.host(r[2])),
+                                                  int(sync.host(r[3]))))
             return out
 
         lc.LoopCloser.detect_loop, lc.LoopCloser._consistent, lc.compute_sim3 = (logged_detect, logged_consistent,
                                                                                   logged_sim3)
+        lc.LoopCloser._try_candidates = logged_try
+        lc.match_keyframes, lc.sim3solver.sim3_ransac = logged_match, logged_ransac
     from orb_slam2v2_1_tpu_torch.models import system
 
     DUMP["filter"] = system._live_associations
@@ -131,7 +169,7 @@ def main():
                           f"ate_first_{chip_smoke.ASYNC_PREFIX}_m": rec[f"ate_first_{chip_smoke.ASYNC_PREFIX}_m"],
                           "keyframes": rec["keyframes"], "closures": slam.loop_closer.closures,
                           "loops_closed": slam.n_loops_closed, "relocalizations_at": rec["relocalizations_at"],
-                          "losses": slam.losses,
+                          "losses": slam.losses, "kf_points": _kf_points(slam.map),
                           "segments": seg, "card": card}), flush=True)
         if events is not None:
             final = slam._settled_map()
@@ -149,6 +187,16 @@ DUMP = {"run": 0, "n": 0}
 # --lba-dump DIR: maps before the local BAs that moved a keyframe this far (m).
 LBA_DUMP = {"dir": None, "min_move": 0.5, "n": 0, "cap": 6}
 DUMP_CAP = 2  # failed Sim3s saved per run (a map is about 1.2 MB)
+
+
+def _kf_points(state):
+    """[insertion sequence, frame, keypoints with a live map point] of each
+    live keyframe of the final map, in insertion order."""
+    import numpy as np
+
+    valid, seq, frame = (t.cpu().numpy() for t in (state.kf_valid, state.kf_seq, state.kf_frame_id))
+    n = ((state.kf_mp >= 0) & state.kf_kp_valid).sum(1).cpu().numpy()
+    return sorted([int(seq[k]), int(frame[k]), int(n[k])] for k in np.nonzero(valid)[0])
 
 
 def _centers(state):
@@ -326,7 +374,7 @@ def _install_sim3_dump(out_dir):
 
     from orb_slam2v2_1_tpu_torch import sync
     from orb_slam2v2_1_tpu_torch.models import loop_closing as lc
-    from orb_slam2v2_1_tpu_torch.ops import sim3solver
+    from orb_slam2v2_1_tpu_torch.ops import prng, sim3solver
     from orb_slam2v2_1_tpu_torch.utils import serialization
 
     try_candidates = lc.LoopCloser._try_candidates
@@ -339,7 +387,7 @@ def _install_sim3_dump(out_dir):
             if out is not None and out[0] == cand or DUMP["n"] >= DUMP_CAP:
                 break
             m = lc.match_keyframes(state, kf_id, cand, self.vocab)
-            sets = sim3solver.hypothesis_sets(m.ok, self._generator(state.kf_pose.device, kf_id, cand))
+            sets = sim3solver.hypothesis_sets(m.ok, prng.key(kf_id * 131 + cand))
             res = lc.compute_sim3(state, kf_id, cand, self.K, fix_scale=self.fix_scale, voc=self.vocab, sets=sets)
             os.makedirs(out_dir, exist_ok=True)
             base = os.path.join(out_dir, f"sim3_run{DUMP['run']}_{DUMP['n']}")
