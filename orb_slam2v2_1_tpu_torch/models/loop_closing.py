@@ -27,12 +27,10 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
-from collections import deque
 
 import torch
 
-from .. import sync
+from .. import spans, sync
 from ..ops import ba, hamming, lie, matching, pose_graph, prng, sim3solver
 from ..ops import vocab as vocab_ops
 from ..ops.projection import project
@@ -469,10 +467,13 @@ class GlobalBARunner:
     (`parallel.dist_ba.get_sharded_lm_chunk`). `result` holds (snapshot
     identity arrays, optimized poses and points, cam_fixed) when the solve
     finishes un-aborted; the owner folds it in with `merge_gba_into_live`.
-    An exception in the worker is raised by `join`."""
+    An exception in the worker is raised by `join`.
+
+    Each solve and each chunk is a span (`gba_solve`, `gba_chunk`) of its
+    own recorder, which writes into `ring` when given (the system's)."""
 
     def __init__(self, K, bf, chunk_iters: int = 3, cg_iters: int = 32, mesh=None,
-                 dense_max_cams: int = 128):
+                 dense_max_cams: int = 128, ring=None):
         self.mesh = mesh_mod.resolve(mesh)
         self.K = K
         self.bf = bf
@@ -486,8 +487,9 @@ class GlobalBARunner:
         self.aborted = False
         self.n_runs = 0
         self.n_aborted = 0
-        self.solve_ms = deque(maxlen=8)  # wall clock of recent solves
-        self.chunk_ms = deque(maxlen=64)  # wall clock of their chunks of LM iterations
+        self.recorder = spans.Recorder(ring)
+        self.solve_ms = self.recorder.keep("gba_solve", 8)  # wall clock of recent solves
+        self.chunk_ms = self.recorder.keep("gba_chunk", 64)  # wall clock of their chunks of LM iterations
 
     @property
     def running(self) -> bool:
@@ -524,19 +526,18 @@ class GlobalBARunner:
             # Always a full chunk (may overshoot `total` by < chunk_iters),
             # as the reference: an extra LM iteration near convergence is
             # free accuracy.
-            t0 = time.perf_counter()
-            if self.mesh is not None:
-                chunk = dist_ba.get_sharded_lm_chunk(self.mesh, iters=self.chunk_iters, robust=robust,
-                                                     cg_iters=self.cg_iters)
-                poses, points, lam, converged = chunk(prob.poses, prob.points, prob.obs, prob.cam_fixed, prob.K,
-                                                      prob.bf, lam)  # reads each iteration's exit flag
-                dev = prob.poses.device
-                prob = prob._replace(poses=poses.to(dev), points=points.to(dev))
-            else:
-                prob, _, lam, conv = ba.ba_step_count_lam(
-                    prob, lam, iters=self.chunk_iters, cg_iters=self.cg_iters, robust=robust, dense=dense)
-                converged = sync.host(conv)  # waits for the chunk
-            self.chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            with self.recorder.span("gba_chunk"):
+                if self.mesh is not None:
+                    chunk = dist_ba.get_sharded_lm_chunk(self.mesh, iters=self.chunk_iters, robust=robust,
+                                                         cg_iters=self.cg_iters)
+                    poses, points, lam, converged = chunk(prob.poses, prob.points, prob.obs, prob.cam_fixed, prob.K,
+                                                          prob.bf, lam)  # reads each iteration's exit flag
+                    dev = prob.poses.device
+                    prob = prob._replace(poses=poses.to(dev), points=points.to(dev))
+                else:
+                    prob, _, lam, conv = ba.ba_step_count_lam(
+                        prob, lam, iters=self.chunk_iters, cg_iters=self.cg_iters, robust=robust, dense=dense)
+                    converged = sync.host(conv)  # waits for the chunk
             done += self.chunk_iters
             if self.stop_flag:
                 return prob, True
@@ -549,25 +550,25 @@ class GlobalBARunner:
         dev = self._snapshot.kf_pose.device
         try:
             # A new thread starts on device 0: launch on the snapshot's card.
-            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+            with ctx, spans.bind(self.recorder):
                 self._run()
         except BaseException as exc:  # handed to the owner by join()
             self._error = exc
 
     def _run(self) -> None:
-        t0 = time.perf_counter()
-        self.n_runs += 1
-        snap = self._snapshot
-        # Compact the problem to the live keyframes (bucketed).
-        n_live = sync.host(torch.sum(snap.kf_valid, dtype=torch.int32))
-        kb = _bucket(n_live, 16, snap.max_kf)
-        prob, cam_slots, cam_used = build_global_ba_problem_compact(snap, self.K, self.bf, kb)
-        prob, aborted = self._chunks(prob, 5, robust=True)
-        if not aborted:
-            prob = ba.classify_outliers(prob)
-            prob, aborted = self._chunks(prob, 10, robust=False)
-        self.aborted = aborted
-        self.solve_ms.append((time.perf_counter() - t0) * 1e3)
+        with self.recorder.span("gba_solve"):
+            self.n_runs += 1
+            snap = self._snapshot
+            # Compact the problem to the live keyframes (bucketed).
+            n_live = sync.host(torch.sum(snap.kf_valid, dtype=torch.int32))
+            kb = _bucket(n_live, 16, snap.max_kf)
+            prob, cam_slots, cam_used = build_global_ba_problem_compact(snap, self.K, self.bf, kb)
+            prob, aborted = self._chunks(prob, 5, robust=True)
+            if not aborted:
+                prob = ba.classify_outliers(prob)
+                prob, aborted = self._chunks(prob, 10, robust=False)
+            self.aborted = aborted
         if aborted:
             self.n_aborted += 1
             return
@@ -628,10 +629,11 @@ class LoopCloser:
         # batch already triggered a closure (counted, not silent).
         self.n_detect_suppressed = 0
 
-    def enable_detached_gba(self, chunk_iters: int = 3) -> None:
+    def enable_detached_gba(self, chunk_iters: int = 3, ring=None) -> None:
+        """Detach the global BA; `ring`: where its spans go (`GlobalBARunner`)."""
         self.detached_gba = True
         if self.gba_runner is None:
-            self.gba_runner = GlobalBARunner(self.K, self.bf, chunk_iters=chunk_iters, mesh=self.mesh)
+            self.gba_runner = GlobalBARunner(self.K, self.bf, chunk_iters=chunk_iters, mesh=self.mesh, ring=ring)
 
     def _merge(self, box) -> None:
         res, self.gba_runner.result = self.gba_runner.result, None

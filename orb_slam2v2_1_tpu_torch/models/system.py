@@ -25,6 +25,16 @@ Three modes, as in the reference:
   `pipeline_depth` frames later; `track_*` then returns the frame's pose as
   a tensor on the device.
 
+Spans (`spans.py`): each `track_*` call is a span `track` keyed by its
+frame id, holding `settle` (the decisions of the frames in flight),
+`frame_build`, `tracking` and `decide` (the decision of a frame tracked
+without pipelining, or of an initializing frame), with `kf_insert` (a
+keyframe's append and submit, keyed by its id) inside either; the call also
+counts its waits in reads and on the map (`track_read_wait`,
+`track_map_wait`). The workers' rounds are spans `map` (with `local_ba`)
+and `loop`, keyed by the keyframe, and `map_queue` a keyframe's wait for its
+round. Every name's lengths are kept in `_metrics`; `spans()` reads the ring.
+
 A session can stream its keyframes to a map server (`connect_server`,
 `parallel/stream.py`), load the server's map, merged with another session's
 if asked (`fetch_server_map`), and adopt a map the server's operator pushed
@@ -53,7 +63,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from .. import kernels, sync
+from .. import kernels, spans, sync
 from ..ops import ba, lie, orb, prng, twoview
 from ..ops import vocab as vocab_ops
 from ..parallel import mesh as mesh_mod
@@ -72,6 +82,15 @@ from .tracking import FrameData
 # The package's vocabulary (`data/vocab.npz`, package data): without the file
 # a system has no vocabulary, so no relocalization and no loop closing.
 VOCAB_NPZ = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "vocab.npz")
+
+# Each span's or counter's name in `SlamSystem._metrics` and the samples its
+# deque keeps: "track", "map" and "loop" as they always were; the names of a
+# frame hold 4096 (a window of a minute at 60 frames/s and its warm-up), those
+# of a keyframe 1024.
+STAGES = (("track", 512), ("map", 128), ("loop", 128),
+          ("settle", 4096), ("frame_build", 4096), ("tracking", 4096), ("decide", 4096),
+          ("track_read_wait", 4096), ("track_map_wait", 4096),
+          ("kf_insert", 1024), ("map_queue", 1024), ("local_ba", 1024))
 
 
 class Sensor(enum.Enum):
@@ -190,9 +209,13 @@ class SlamSystem:
         # their stage-2 pose instead of declaring loss (their >= 15 inliers
         # still pin it).
         self._grace_left = 0
-        # Rolling per-stage latency (ms), see stats(); "map" and "loop" are
-        # timed inside the call in sync mode and on the workers in async mode.
-        self._metrics = {"track": deque(maxlen=512), "map": deque(maxlen=128), "loop": deque(maxlen=128)}
+        # Rolling per-stage latency (ms), see stats() and the module doc;
+        # "map" and "loop" are timed inside the call in sync mode and on the
+        # workers in async mode. The recorder and its deques outlive reset().
+        self._rec = spans.Recorder()
+        for name, n in STAGES:
+            self._rec.keep(name, n)
+        self._metrics = self._rec.series
         self._stream = None  # the map server connection, see connect_server
         self._sent_rows = self._sent_valid = None  # what the server holds of each keyframe row
         if self.async_mapping:
@@ -227,19 +250,18 @@ class SlamSystem:
         closer = self.loop_closer
 
         def mapping_fn(state, kf_id, allow_ba):
-            t0 = _time.perf_counter()
-            kf = torch.tensor(kf_id, dtype=torch.int64, device=self.device)
-            if self.mesh is not None:
-                state, victim, vparent, T_red = frontend.mapping_pipeline_dist(
-                    state, kf, self._K, self._bf, self.mesh, voc=self.vocab, allow_ba=allow_ba)
-            else:
-                state, victim, vparent, T_red = frontend.mapping_pipeline(
-                    state, kf, self._K, self._bf, allow_ba, voc=self.vocab)
-            v, p, T = sync.host_numpy(victim, vparent, T_red)  # also ends the round for its timing
-            if int(v) >= 0:
-                # The tracker rewrites its trajectory on its next frame.
-                self._pending_redirects.append((int(v), int(p), T))
-            self._metrics["map"].append((_time.perf_counter() - t0) * 1e3)
+            with self._rec.span("map", kf_id):
+                kf = torch.tensor(kf_id, dtype=torch.int64, device=self.device)
+                if self.mesh is not None:
+                    state, victim, vparent, T_red = frontend.mapping_pipeline_dist(
+                        state, kf, self._K, self._bf, self.mesh, voc=self.vocab, allow_ba=allow_ba)
+                else:
+                    state, victim, vparent, T_red = frontend.mapping_pipeline(
+                        state, kf, self._K, self._bf, allow_ba, voc=self.vocab)
+                v, p, T = sync.host_numpy(victim, vparent, T_red)  # also ends the round for its timing
+                if int(v) >= 0:
+                    # The tracker rewrites its trajectory on its next frame.
+                    self._pending_redirects.append((int(v), int(p), T))
             return state
 
         loop_fn = loop_service_fn = None
@@ -247,14 +269,13 @@ class SlamSystem:
             # The global BA runs detached from the loop worker's structural
             # lock: on its own thread in abortable chunks, merged when done
             # (the reference's GBA thread, src/LoopClosing.cc:588).
-            closer.enable_detached_gba()
+            closer.enable_detached_gba(ring=self._rec.ring)
 
             def loop_fn(snapshot, kf_id):
                 # Detection on the snapshot, lock-free; returns the closure
                 # (run under the structural lock) or None.
-                t0 = _time.perf_counter()
-                trig = closer.detect_loop(snapshot, int(kf_id), self.n_kf_host)
-                self._metrics["loop"].append((_time.perf_counter() - t0) * 1e3)
+                with self._rec.span("loop", int(kf_id)):
+                    trig = closer.detect_loop(snapshot, int(kf_id), self.n_kf_host)
                 if trig is None:
                     return None
                 cand, S12 = trig
@@ -270,7 +291,8 @@ class SlamSystem:
                 return lambda state: closer.apply_closure(state, kf_before, kf_reloc, S12)
 
         self._mapper = AsyncMapper(self._box, mapping_fn, loop_fn=loop_fn, loop_service_fn=loop_service_fn,
-                                   device=self.device, join_fn=join_fn if closer is not None else None)
+                                   device=self.device, join_fn=join_fn if closer is not None else None,
+                                   recorder=self._rec)
 
     def _stop_async(self, drain: bool):
         """Stop the workers (after their queues drain unless drain=False),
@@ -414,39 +436,38 @@ class SlamSystem:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
+    def _call(self):
+        """The span of one `track_*` call and its wait counters."""
+        return self._rec.call("track", self.frame_id, "track_read_wait", "track_map_wait")
+
     def track_monocular(self, img, timestamp: float):
-        t0 = _time.perf_counter()
-        out = self._step(img, None, timestamp)
-        self._metrics["track"].append((_time.perf_counter() - t0) * 1e3)
-        return out
+        with self._call():
+            return self._step(img, None, timestamp)
 
     def track_rgbd(self, img, depth, timestamp: float):
-        t0 = _time.perf_counter()
-        out = self._step(img, depth, timestamp)
-        self._metrics["track"].append((_time.perf_counter() - t0) * 1e3)
-        return out
+        with self._call():
+            return self._step(img, depth, timestamp)
 
     def track_stereo(self, img_left, img_right, timestamp: float):
         """Stereo entry point (System::TrackStereo, src/System.cc:365-423):
         the frame is built from the rectified pair, then tracked as an RGB-D
         frame (ur and depth from the disparity)."""
-        t0 = _time.perf_counter()
-        frame = frontend.build_frame_stereo(
-            self._tensor(img_left), self._tensor(img_right), self._K, self._dist, self._bf,
-            self.frame_id, self._orb_cfg,
-        )
-        out = self._step_built(frame, timestamp)
-        self._metrics["track"].append((_time.perf_counter() - t0) * 1e3)
-        return out
+        with self._call():
+            frame = frontend.build_frame_stereo(
+                self._tensor(img_left), self._tensor(img_right), self._K, self._dist, self._bf,
+                self.frame_id, self._orb_cfg,
+            )
+            return self._step_built(frame, timestamp)
 
     def _settle_pending(self):
         """Decide the in-flight frames whose statistics have arrived; if
         pipelining has stopped (health dropped, loss), decide them all, so
         the synchronous path sees settled state."""
-        if self._pending:
-            self._drain_pending()
-            if self._pending and not self._pipelining_active():
-                self._drain_pending(force=True)
+        with self._rec.span("settle"):
+            if self._pending:
+                self._drain_pending()
+                if self._pending and not self._pipelining_active():
+                    self._drain_pending(force=True)
 
     def _step(self, img, depth, timestamp: float):
         self._settle_pending()
@@ -492,18 +513,19 @@ class SlamSystem:
     def _first_frame(self, frame: FrameData, timestamp: float):
         """A frame before initialization: bootstrap the map from it if it
         has enough keypoints."""
-        self.state = TrackState.NOT_INITIALIZED
-        ok = self._initialize(frame)
-        self.frame_id += 1
-        if not ok:
-            return None
-        self._publish_fresh_map()
-        self.state = TrackState.OK
-        self._velocity_dev = torch.eye(4, dtype=torch.float32, device=self.device)
-        self._have_velocity = False
-        out = self._record(timestamp, self.last_frame.pose)
-        self._publish_pose(timestamp, out)
-        return out
+        with self._rec.span("decide"):
+            self.state = TrackState.NOT_INITIALIZED
+            ok = self._initialize(frame)
+            self.frame_id += 1
+            if not ok:
+                return None
+            self._publish_fresh_map()
+            self.state = TrackState.OK
+            self._velocity_dev = torch.eye(4, dtype=torch.float32, device=self.device)
+            self._have_velocity = False
+            out = self._record(timestamp, self.last_frame.pose)
+            self._publish_pose(timestamp, out)
+            return out
 
     def _vo_points_enabled(self) -> bool:
         """Temporal VO points (mbVO, src/Tracking.cc:434-501): localization
@@ -647,9 +669,10 @@ class SlamSystem:
     # The per-frame decision
     # ------------------------------------------------------------------
     def _handle_result(self, res: frontend.FrameResult, timestamp: float):
-        out = self._handle_result_impl(res, timestamp)
-        self._publish_pose(timestamp, out)
-        return out
+        with self._rec.span("decide"):
+            out = self._handle_result_impl(res, timestamp)
+            self._publish_pose(timestamp, out)
+            return out
 
     def _relocalize(self, frame: FrameData, frame_id: int | None = None):
         out = relocalization.relocalize(self.map, self.loop_closer.db, self.vocab, frame, self._K, self._bf,
@@ -789,9 +812,8 @@ class SlamSystem:
                 # this frame's associations from its own keyframe row.
                 self.last_frame = res.frame._replace(mp=self.map.kf_mp[self.ref_kf])
                 if self.loop_closer is not None:
-                    t0 = _time.perf_counter()
-                    self.map, closed = self.loop_closer.on_keyframe(self.map, self.ref_kf, self.n_kf_host)
-                    self._metrics["loop"].append((_time.perf_counter() - t0) * 1e3)
+                    with self._rec.span("loop", self.ref_kf):
+                        self.map, closed = self.loop_closer.on_keyframe(self.map, self.ref_kf, self.n_kf_host)
                     if closed:
                         self.n_loops_closed += 1
                         # The map moved under the motion model.
@@ -824,6 +846,13 @@ class SlamSystem:
         }
         for fn in self._pose_listeners:
             fn(sample)
+
+    def spans(self, since_ns: int | None = None) -> list[spans.Span]:
+        """The recorded spans and counters, oldest first: every span of the
+        tracker and the workers (`spans.Span`: name, role, key, parent,
+        start and end in `time.perf_counter_ns()`, ms); with `since_ns`,
+        those that ended at or after it. Kept across `reset()`."""
+        return self._rec.spans(since_ns)
 
     def stats(self) -> dict:
         """Rolling runtime/health snapshot with the reference's keys:
@@ -1047,20 +1076,19 @@ class SlamSystem:
         self._apply_cull(int(v), int(p), T)
 
     def _insert_keyframe_fused(self, frame: FrameData):
-        t0 = _time.perf_counter()
-        depth_limit = 0.0 if self.sensor == Sensor.MONOCULAR else self._depth_limit
-        if self.mesh is not None:
-            # The window BA sharded over the mesh: append, then the mapping
-            # round with its solve on the mesh.
-            self.map, kf_id = frontend.append_keyframe_only(self.map, frame, self._K, self._bf, depth_limit)
-            self.map, victim, vparent, T_redirect = frontend.mapping_pipeline_dist(
-                self.map, kf_id, self._K, self._bf, self.mesh, voc=self.vocab)
-        else:
-            self.map, kf_id, _, victim, vparent, T_redirect = frontend.insert_keyframe_fused_impl(
-                self.map, frame, self._K, self._bf, depth_limit, self.vocab,
-            )
-        kf, v, p, T = sync.host_numpy(kf_id, victim, vparent, T_redirect)
-        self._metrics["map"].append((_time.perf_counter() - t0) * 1e3)
+        with self._rec.span("map"):
+            depth_limit = 0.0 if self.sensor == Sensor.MONOCULAR else self._depth_limit
+            if self.mesh is not None:
+                # The window BA sharded over the mesh: append, then the mapping
+                # round with its solve on the mesh.
+                self.map, kf_id = frontend.append_keyframe_only(self.map, frame, self._K, self._bf, depth_limit)
+                self.map, victim, vparent, T_redirect = frontend.mapping_pipeline_dist(
+                    self.map, kf_id, self._K, self._bf, self.mesh, voc=self.vocab)
+            else:
+                self.map, kf_id, _, victim, vparent, T_redirect = frontend.insert_keyframe_fused_impl(
+                    self.map, frame, self._K, self._bf, depth_limit, self.vocab,
+                )
+            kf, v, p, T = sync.host_numpy(kf_id, victim, vparent, T_redirect)
         self.ref_kf = int(kf)
         self.n_kf_host += 1
         self.last_kf_frame = self.frame_id
@@ -1105,13 +1133,14 @@ class SlamSystem:
             cell.append(kf_id)
             return state
 
-        self.map = self._box.mutate(step)
-        self._map_version = self._box.version
-        self.ref_kf = int(sync.host(cell[0]))
-        self.n_kf_host += 1
-        self.last_kf_frame = self.frame_id
-        self._mapper.submit_keyframe(self.ref_kf)
-        self._stream_keyframe()
+        with self._rec.span("kf_insert") as s:
+            self.map = self._box.mutate(step)
+            self._map_version = self._box.version
+            self.ref_kf = s.key = int(sync.host(cell[0]))
+            self.n_kf_host += 1
+            self.last_kf_frame = self.frame_id
+            self._mapper.submit_keyframe(self.ref_kf)
+            self._stream_keyframe()
 
     def _apply_cull(self, victim: int, parent: int, T_redirect):
         """Host bookkeeping for an erased keyframe: rewrite trajectory

@@ -22,6 +22,11 @@ runs under `torch.cuda.device(device)`.
 Cooperative cancellation mirrors `mbAbortBA` (src/LocalMapping.cc:126): when
 tracking enqueues a new keyframe while the mapping worker is busy, the worker
 skips the local-BA stage of the round it starts next and catches up.
+
+A thread that waits for the structural lock reports the wait to the wait
+clock of `spans`, and so does the tracker while the mapping queue is full.
+Each keyframe's time in the mapping queue is a span `map_queue` of the
+mapper's recorder, from its submit to the start of its round.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from __future__ import annotations
 import contextlib
 import struct
 import threading
+from time import perf_counter_ns
 
 import torch
 
-from .. import sync
+from .. import spans, sync
 from .native import NativeFlag, NativeQueue, NativeWorker
 
 # How long a blocked push waits before it looks for a failed worker again.
@@ -80,11 +86,18 @@ class MapBox:
         (only the state; other results leave through closures). The
         structural lock is held across the work: structural writers come at
         keyframe cadence and must not overwrite each other."""
-        with self._struct_lock:
+        lock = self._struct_lock
+        if not lock.acquire(blocking=False):
+            t0 = perf_counter_ns()
+            lock.acquire()
+            spans.waited(spans.MAP, t0)
+        try:
             state, _ = self.read()
             new_state = fn(state)
             self.publish(new_state)
             return new_state
+        finally:
+            lock.release()
 
     @property
     def version(self):
@@ -105,11 +118,14 @@ class AsyncMapper:
       candidate pair the tracker found by relocalization (`submit_join`).
 
     `device`: the CUDA device the workers launch on (None: no device
-    context, as on the CPU)."""
+    context, as on the CPU). `recorder`: the `spans.Recorder` bound to both
+    workers, which also takes the `map_queue` spans (a new one if None)."""
 
     def __init__(self, box: MapBox, mapping_fn, loop_fn=None, queue_cap: int = 32,
-                 loop_service_fn=None, device=None, join_fn=None):
+                 loop_service_fn=None, device=None, join_fn=None, recorder=None):
         self.box = box
+        self.recorder = spans.Recorder() if recorder is None else recorder
+        self._queued = {}  # kf_id -> perf_counter_ns() of its submit
         self._join_fn = join_fn
         self._mapping_fn = mapping_fn
         self._loop_fn = loop_fn
@@ -133,7 +149,7 @@ class AsyncMapper:
         def body(msg: bytes):
             sync.set_role(role)
             ctx = torch.cuda.device(self._device) if self._device is not None else contextlib.nullcontext()
-            with ctx:
+            with ctx, spans.bind(self.recorder):
                 return step(msg)
 
         return body
@@ -147,8 +163,11 @@ class AsyncMapper:
         self.raise_worker_errors()
         self.abort_ba.set(1)
         msg = struct.pack("<i", kf_id)
-        while not self.map_q.push(msg, timeout_ms=_PUSH_POLL_MS):
-            self.raise_worker_errors()
+        self._queued[kf_id] = t0 = perf_counter_ns()
+        if not self.map_q.push(msg, timeout_ms=0):
+            while not self.map_q.push(msg, timeout_ms=_PUSH_POLL_MS):
+                self.raise_worker_errors()
+            spans.waited(spans.MAP, t0)
         self.n_submitted += 1
 
     def submit_join(self, kf_before: int, kf_reloc: int):
@@ -164,6 +183,10 @@ class AsyncMapper:
     # -- worker side --------------------------------------------------------
     def _map_step(self, msg: bytes):
         (kf_id,) = struct.unpack("<i", msg)
+        queued = self._queued.pop(kf_id, None)
+        if queued is not None:
+            now = perf_counter_ns()
+            self.recorder.add("map_queue", kf_id, None, queued, now, (now - queued) * 1e-6)
         self.abort_ba.clear()
         # Skip BA when a newer keyframe is already waiting (interrupted-BA
         # semantics); the culling, triangulation and fusion stages always run.
@@ -217,6 +240,7 @@ class AsyncMapper:
         try:
             self._map_worker.join()
         finally:
+            self._queued.clear()
             if self.loop_q is not None:
                 self.loop_q.close()
                 self._loop_worker.join()

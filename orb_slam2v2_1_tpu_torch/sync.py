@@ -13,18 +13,29 @@ hence the lock.
 `AsyncRead` is the pipelined path's read of a frame's decision vector: a
 copy started without waiting, which counts as a read only if the host has to
 wait for it.
+
+Each read's wait is timed for the wait clock of `spans` (`spans.waited`).
 """
 
 from __future__ import annotations
 
 import threading
+from time import perf_counter_ns
 
 import torch
+
+from . import spans
 
 COUNT = {"syncs": 0}
 BY_ROLE: dict = {}
 _LOCK = threading.Lock()
-_ROLE = threading.local()
+
+
+class _Role(threading.local):
+    name = "tracker"  # a thread that was never tagged
+
+
+_ROLE = _Role()
 
 
 def set_role(name: str) -> None:
@@ -34,7 +45,7 @@ def set_role(name: str) -> None:
 
 def role() -> str:
     """The calling thread's role; "tracker" unless it was tagged."""
-    return getattr(_ROLE, "name", "tracker")
+    return _ROLE.name
 
 
 def _count() -> None:
@@ -47,7 +58,10 @@ def _count() -> None:
 def host(t: torch.Tensor):
     """`t.tolist()`, counted as one device-to-host transfer."""
     _count()
-    return t.tolist()
+    t0 = perf_counter_ns()
+    out = t.tolist()
+    spans.waited(spans.READ, t0)
+    return out
 
 
 def host_numpy(*tensors: torch.Tensor) -> list:
@@ -55,7 +69,10 @@ def host_numpy(*tensors: torch.Tensor) -> list:
     device-to-host round. The arrays are copies, also of CPU tensors: a
     caller may keep or change them without touching the tensors."""
     _count()
-    return [t.detach().to("cpu", copy=True).numpy() for t in tensors]
+    t0 = perf_counter_ns()
+    out = [t.detach().to("cpu", copy=True).numpy() for t in tensors]
+    spans.waited(spans.READ, t0)
+    return out
 
 
 def reset() -> None:
@@ -88,5 +105,7 @@ class AsyncRead:
     def numpy(self):
         if not self.is_ready():
             _count()
+            t0 = perf_counter_ns()
             self._event.synchronize()
+            spans.waited(spans.READ, t0)
         return self._host.numpy()
