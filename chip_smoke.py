@@ -17,17 +17,22 @@ Phases, each of which raises (exit code != 0) on failure:
      second) and the finished one-to-one match at the nine search shapes
      (motion model, local map, batched fuse, loop closing's Sim3 search and
      loop fusion, the KITTI geometry's motion model, local map and fuse with
-     2000 keypoints, and the monocular motion model at radius 15). Per form: the device time without the host (100 calls
-     in one CUDA graph between two events), the wrapper-included time and the
-     plain version's (events around one call, median of 20), the bound
-     reckoned from this run's inputs, and the empty kernel's launch;
+     2000 keypoints, and the monocular motion model at radius 15); kernel 3,
+     the tracker's pose optimization (`pose_lm`), against its plain version
+     at 1x1000 RGB-D and 1x2000 KITTI observations, within float32 rounding
+     (its sums run in another order: pose within 1e-4, inlier flags equal
+     away from the chi2 threshold) and bit for bit between two calls. Per
+     form: the device time without the host (100 calls in one CUDA graph
+     between two events), the wrapper-included time and the plain version's
+     (events around one call, median of 20), the bound reckoned from this
+     run's inputs, and the empty kernel's launch;
   4. the main path: frames 0-95 of the benchmark's 321-frame RGB-D orbit,
      rendered on the card, through `models.offline.track_sequence_rgbd` at the
      benchmark configuration (640x480, 1000 features, 8 levels, 128 keyframes,
-     16384 map points); launch counts of both kernels (fast_score_nms once
-     per frame), tracked share, ATE against the orbit's ground truth,
-     frames/s; the first frames are also run on the CPU (plain versions) and
-     must agree;
+     16384 map points); launch counts of the kernels (fast_score_nms once
+     per frame, pose_lm at least twice per tracked frame), tracked share,
+     ATE against the orbit's ground truth, frames/s; the first frames are
+     also run on the CPU (plain versions) and must agree;
   5. the loop path: all 321 frames of the orbit as one timed run of the
      benchmark's headline, `bench.headline(warm=0, runs=1)`: the same entry
      point with the loop closer of `bench.make_loop_closer` (the package's
@@ -80,7 +85,9 @@ Phases, each of which raises (exit code != 0) on failure:
      global-BA thread alive after `shutdown`, nothing in flight after
      `flush`, and kernel 2 launched from the mapping worker's thread. One
      line: per-call latency p50/p90/p99/max, `map_ms_p50`, frames/s, host
-     reads per frame by the tracker and by the workers, launches by thread;
+     reads per frame by the tracker and by the workers, launches by thread
+     (the tracker's pose_lm at least twice per tracked frame, here and in
+     phase 12);
  12. bench.py's KITTI leg in the same mode (`bench.kitti_frames`,
      `production_system`, `kitti_run`), after `warmup(gba_buckets=(16, 32))`:
      at least the reference's 51/60 tracked, ATE within 2 x 0.01137 m; then
@@ -385,6 +392,14 @@ FAST_OPS_PER_PIXEL = 185
 # (valid query, target) pair; 8 XORs, 8 popcounts and their sum for a pair
 # that passes it.
 SEARCH_OPS_PER_PAIR, SEARCH_OPS_PER_CANDIDATE = 8, 27
+# Operations of pose_lm (a multiply-add counted once), per observation: an
+# LM iteration's pass at T (transform 12, projection and residuals 11, chi2
+# and Huber 8, weight and cost 7, the 18 Jacobian entries 28, and per
+# residual row 6 weighted entries, 21 of H and 6 of g: 99) and its pass at
+# T_new (35), about 200; a round's inlier gate about 30. Bytes: index,
+# point, target, inv_sigma2 and two flags read and the mask written, 35 an
+# observation.
+POSE_OPS_PER_OBS_ITER, POSE_OPS_PER_OBS_ROUND, POSE_BYTES_PER_OBS = 200, 30, 35
 
 
 def bound(n_bytes, n_ops):
@@ -491,6 +506,51 @@ def check_match(kt, dev, rng, floor_ms):
     main = shapes[3]  # the local-map search in the match form: two of them per tracked frame
     return {"max_abs_err": 0.0, **{k: main[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
             "shapes": shapes}
+
+
+def check_pose(kt, dev, rng, floor_ms):
+    """Kernel 3 against the plain version on the card at the main path's
+    widths (1000 RGB-D slots, 2000 KITTI slots): the pose within 1e-4, the
+    inlier masks equal but where chi2 at the plain pose lies within 1e-4
+    (relative) of its threshold, the count that of the mask, two calls bit
+    for bit equal (the sums run in another order than the plain version's,
+    in a fixed one). The bound counts the iterations the kernel itself ran
+    (its fourth output), logged beside the plain version's."""
+    import torch
+    from orb_slam2v2_1_tpu_torch import kernels, sync
+    from orb_slam2v2_1_tpu_torch.ops import ba
+
+    shapes = []
+    for name, n, stereo_frac in kt.POSE_SHAPES:
+        args = kt.pose_inputs(rng, dev, n, stereo_frac)
+        T0, pts, obs, K, bf = args
+        flat = (T0, pts, obs.pt_idx, obs.target, obs.inv_sigma2, obs.is_stereo, obs.valid, K, bf)
+        reads = sync.COUNT["syncs"]
+        ref_T, ref_mask, ref_n = ba.pose_optimization_plain(*args)
+        plain_iterations = sync.COUNT["syncs"] - reads
+        got, again = ba.pose_optimization(*args), ba.pose_optimization(*args)
+        ran = kernels.pose_lm(*flat)[3].cpu().tolist()
+        torch.cuda.synchronize()
+        near = kt.pose_near_threshold(ref_T, pts, obs, K, bf)
+        differ = (got[1] != ref_mask).cpu().numpy()
+        err = float((got[0] - ref_T).abs().max())
+        if not (all(torch.equal(a, b) for a, b in zip(got, again)) and err <= 1e-4
+                and not (differ & ~near).any() and int(got[2]) == int(got[1].sum())):
+            raise AssertionError(f"pose_lm differs from pose_optimization_plain at {name} 1x{n}: pose {err:.2e}, "
+                                 f"{int(differ.sum())} inlier flags ({int((differ & ~near).sum())} off the threshold)")
+        iterations = sum(ran)
+        log(f"pose_lm {name} 1x{n}: pose within {err:.2e}, {int(got[2])} inliers (plain {int(ref_n)}), "
+            f"{int(differ.sum())} flags at the threshold, LM iterations by round {ran} ({iterations}; "
+            f"the plain version {plain_iterations})")
+        n_ops = POSE_OPS_PER_OBS_ITER * n * iterations + POSE_OPS_PER_OBS_ROUND * n * 4
+        shapes.append(timed(kt, "pose_lm", [1, n], lambda args=args: ba.pose_optimization(*args),
+                            lambda args=args: ba.pose_optimization_plain(*args),
+                            POSE_BYTES_PER_OBS * n + 148, n_ops, floor_ms, caller=name))
+        shapes[-1].update(max_abs_err=err, iterations=iterations, iterations_by_round=ran,
+                          plain_iterations=plain_iterations, us_per_iteration=1e3 * shapes[-1]["ms"] / iterations)
+    main = shapes[0]
+    return {"max_abs_err": max(sh["max_abs_err"] for sh in shapes),
+            **{k: main[k] for k in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")}, "shapes": shapes}
 
 
 def orbit_ate(poses, ok, gt):
@@ -1233,6 +1293,10 @@ def check_async(rec, launches, by_role, slam, fast_per_frame):
         raise AssertionError(f"{name}: masked_best_two was never launched from the mapping worker")
     if by_role["fast_score_nms"].get("tracker", 0) != launches["fast_score_nms"]:
         raise AssertionError(f"{name}: fast_score_nms launched off the tracker thread: {by_role}")
+    tracked = rec["tracked"] - 1 - rec["resets"]  # the first frame of a map initializes it
+    if by_role["pose_lm"].get("tracker", 0) < 2 * tracked:
+        raise AssertionError(f"{name}: the tracker launched pose_lm {by_role['pose_lm'].get('tracker', 0)} times "
+                             f"for {tracked} tracked frames, expected at least two each")
 
 
 def run_online_async(imgs, deps, gt, cfg, card, check=True):
@@ -1762,6 +1826,7 @@ def main():
     kitti_noise = torch.from_numpy(rng.uniform(0, 255, (kcfg.height, kcfg.width)).astype(np.float32)).to(dev)
     fast_res["shapes"] += check_fast(kt, kitti_img.contiguous(), kitti_noise, kcfg, kocfg, floor_ms, " (KITTI)")["shapes"]
     match_res = check_match(kt, dev, rng, floor_ms)
+    pose_res = check_pose(kt, dev, rng, floor_ms)
 
     # --- the main path ---
     kernels.reset_launch_counts()
@@ -1794,6 +1859,9 @@ def main():
             raise AssertionError(f"kernel {name} was not launched by the main path")
     if launches["fast_score_nms"] != N_FRAMES:
         raise AssertionError(f"fast_score_nms: {launches['fast_score_nms']} launches for {N_FRAMES} frames, expected one each")
+    if launches["pose_lm"] < 2 * (n_ok - 1):
+        raise AssertionError(f"pose_lm: {launches['pose_lm']} launches for {n_ok - 1} tracked frames after the first, "
+                             "expected at least two each")
 
     # --- the same frames through the plain versions on the CPU ---
     cpu_poses, cpu_ok, _ = offline.track_sequence_rgbd(
@@ -1895,9 +1963,9 @@ def main():
         np.savez(os.path.join(out_dir, "chip_smoke_poses.npz"), poses=poses, ok=ok,
                  loop_poses=loop_poses, loop_ok=loop_ok)
 
-    def entry(name, res, src, line):
+    def entry(name, res, src, replaces):
         return {"name": name, "route": "cuda", "source": f"orb_slam2v2_1_tpu_torch/csrc/{src}",
-                "replaces": f"orb_slam2v2_1_tpu/ops/pallas_kernels.py:{line}", "launches": loop_launches[name],
+                "replaces": replaces, "launches": loop_launches[name],
                 "launches_by_path": {"rgbd_96_frames": launches[name], "loop_321_frames": loop_launches[name],
                                      "online_rgbd": online_launches[name], "stereo_dolly": dolly_launches[name],
                                      "stereo_kitti": kitti_launches[name], "clean_desk_rgbd": desk_launches[name],
@@ -1918,8 +1986,10 @@ def main():
 
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
-        "kernels": [entry("fast_score_nms", fast_res, "fast_score_nms.cu", 138),
-                    entry("masked_best_two", match_res, "masked_best_two.cu", 225)],
+        "kernels": [entry("fast_score_nms", fast_res, "fast_score_nms.cu", "orb_slam2v2_1_tpu/ops/pallas_kernels.py:138"),
+                    entry("masked_best_two", match_res, "masked_best_two.cu", "orb_slam2v2_1_tpu/ops/pallas_kernels.py:225"),
+                    entry("pose_lm", pose_res, "pose_lm.cu",
+                          "no Pallas kernel: the compiled while_loop of orb_slam2v2_1_tpu/ops/ba.py:132")],
         "main_path": {"frames": N_FRAMES, "tracked": n_ok, "keyframes": n_kf, "map_points": n_mp,
                       "ate_m": ate, "ate_anchored_m": ate_anchored, "wall_s": wall,
                       "fps": N_FRAMES / wall, "host_syncs": syncs, "card": card},

@@ -161,6 +161,70 @@ def search_inputs(rng, dev, b, q, n, width, height, radius=None):
     return qf, torch.from_numpy(r).to(dev), tf
 
 
+# (name, observations, stereo share) of the tracker's pose optimization: the
+# benchmark's 1000 RGB-D slots and the KITTI geometry's 2000 stereo slots.
+POSE_SHAPES = (("rgbd", 1000, 0.3), ("kitti", 2000, 0.8))
+
+
+def pose_inputs(rng, dev, n, stereo_frac, outliers=0.1, noise=0.5, xi=(0.05, -0.03, 0.02, 0.01, -0.02, 0.015),
+                invalid=0.05, info_scale=1.0, vo_layout=False):
+    """(Tcw0, points, obs, K, bf) of one motion-only pose problem from `rng`:
+    n observations of points 3-9 m ahead seen from the pose se3_exp(xi)
+    (the start is the identity), `noise` px of noise, a share `outliers` of
+    them up to 40 px off, a share `stereo_frac` stereo, octaves 0-7
+    (inv_sigma2 = info_scale / 1.44 ** level), a share `invalid` of invalid
+    slots; K and bf of the benchmark camera. The map holds 1.5 n points seen
+    through a permutation, or with `vo_layout` n points with pt_idx = arange
+    (the motion model's explicit positions)."""
+    import numpy as np
+    import torch
+    from orb_slam2v2_1_tpu_torch.ops import ba, lie
+
+    K = np.array([BENCH["fx"], BENCH["fy"], BENCH["cx"], BENCH["cy"]], np.float32)
+    bf = float(np.float32(BENCH["bf"]))
+    n_pts = n if vo_layout else n + n // 2
+    pts = np.stack([rng.uniform(-3, 3, n_pts), rng.uniform(-2, 2, n_pts), rng.uniform(3, 9, n_pts)], -1)
+    idx = np.arange(n) if vo_layout else rng.permutation(n_pts)[:n]
+    T = lie.se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy().astype(np.float64)
+    pc = pts[idx] @ T[:3, :3].T + T[:3, 3]
+    uv = np.stack([K[0] * pc[:, 0] / pc[:, 2] + K[2], K[1] * pc[:, 1] / pc[:, 2] + K[3]], -1)
+    uv += rng.normal(size=uv.shape) * noise
+    bad = rng.uniform(size=n) < outliers
+    uv[bad] += rng.uniform(-40, 40, (int(bad.sum()), 2))
+    stereo = rng.uniform(size=n) < stereo_frac
+    target = np.concatenate([uv, np.where(stereo, uv[:, 0] - bf / pc[:, 2], -1.0)[:, None]], -1)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    obs = ba.Obs(t(np.zeros(n), torch.int32), t(idx, torch.int32), t(target),
+                 t(info_scale / 1.44 ** rng.integers(0, 8, n)), t(stereo, torch.bool),
+                 t(rng.uniform(size=n) > invalid, torch.bool))
+    return torch.eye(4, device=dev), t(pts), obs, t(K), bf
+
+
+def pose_near_threshold(T, points, obs, K, bf, rel=1e-4):
+    """The observations whose chi2 at the pose T, computed in float64 on the
+    host, lies within `rel` (relative) of its inlier threshold: where the
+    kernel's inlier flags and the plain version's may differ by rounding
+    (their sums run in different orders)."""
+    import numpy as np
+    from orb_slam2v2_1_tpu_torch.ops import ba
+
+    T = T.detach().cpu().double().numpy()
+    pw = points.detach().cpu().double().numpy()[obs.pt_idx.cpu().long().numpy()]
+    k = K.detach().cpu().double().numpy()
+    tgt = obs.target.cpu().double().numpy()
+    st = obs.is_stereo.cpu().numpy()
+    pc = pw @ T[:3, :3].T + T[:3, 3]
+    iz = 1.0 / np.maximum(pc[:, 2], 1e-6)
+    u = k[0] * pc[:, 0] * iz + k[2]
+    v = k[1] * pc[:, 1] * iz + k[3]
+    chi2 = ((u - tgt[:, 0]) ** 2 + (v - tgt[:, 1]) ** 2 + ((u - bf * iz - tgt[:, 2]) * st) ** 2) \
+        * obs.inv_sigma2.cpu().double().numpy()
+    return np.abs(chi2 / np.where(st, ba.CHI2_STEREO, ba.CHI2_MONO) - 1.0) <= rel
+
+
 def fast_stage(levels, counts, ocfg):
     """The FAST stage of one frame as `ops.orb.extract_orb` runs it: from the
     pyramid's levels to (yx, response, valid) per level."""
@@ -229,6 +293,17 @@ def main() -> int:
         cases[f"match_projection {name} {b}x{q}x{n}"] = (
             lambda qf=qf, r=r, tf=tf, max_dist=max_dist, ratio=ratio: matching.match_projection(
                 *qf, *tf, r, max_dist=max_dist, nn_ratio=ratio))
+
+    if hasattr(kernels, "pose_lm"):
+        from orb_slam2v2_1_tpu_torch.ops import ba
+
+        for name, n, stereo_frac in POSE_SHAPES:
+            args = pose_inputs(rng, dev, n, stereo_frac)
+            T0, pts, obs, K, bf = args
+            out = kernels.pose_lm(T0, pts, obs.pt_idx, obs.target, obs.inv_sigma2, obs.is_stereo, obs.valid, K, bf)
+            # The LM iterations the kernel ran, by round (where it reports them).
+            ran = f" ({'+'.join(map(str, out[3].tolist()))} iterations)" if len(out) > 3 else ""
+            cases[f"pose_lm {name} 1x{n}{ran}"] = lambda args=args: ba.pose_optimization(*args)
 
     results, failed = {}, []
     for name, fn in cases.items():

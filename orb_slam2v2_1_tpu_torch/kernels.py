@@ -11,7 +11,8 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch, launches on PyTorch's current stream, raises if the C
 entry point returns a CUDA error, and adds one to its kernel's launch count.
 The wrappers accept CUDA tensors only; the device dispatch (kernel on the
-card, plain PyTorch on the CPU) lives in `ops/fast.py` and `ops/matching.py`.
+card, plain PyTorch on the CPU) lives in `ops/fast.py`, `ops/matching.py` and
+`ops/ba.py`.
 
 | kernel | source | replaces (TPU) | form: wrapper | plain version |
 | --- | --- | --- | --- | --- |
@@ -19,6 +20,7 @@ card, plain PyTorch on the CPU) lives in `ops/fast.py` and `ops/matching.py`.
 | | | | best corner per 16x16 cell, whole pyramid in one launch: `fast_cells_pyramid` | ops/fast.py rank_cells(nms3(fast_score(.))) per level |
 | masked_best_two | csrc/masked_best_two.cu | ops/pallas_kernels.py masked_best_two | (argmin, best, second): `masked_best_two` | ops/matching.py masked_best_two_plain |
 | | | | finished one-to-one match: `masked_match` | ops/matching.py match_projection_plain |
+| pose_lm | csrc/pose_lm.cu | none (the JAX package's compiled `while_loop`, ops/ba.py pose_optimization) | (Tcw, inlier mask, count), every LM round in one launch: `pose_lm` | ops/ba.py pose_optimization_plain |
 
 `csrc/launch_floor.cu` holds an empty kernel (`empty_launch`) that only the
 timing scripts launch: the device-side cost of a launch.
@@ -42,23 +44,25 @@ from . import sync
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-SOURCES = ("fast_score_nms.cu", "masked_best_two.cu", "launch_floor.cu")
+SOURCES = ("fast_score_nms.cu", "masked_best_two.cu", "pose_lm.cu", "launch_floor.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 
 # Fixed by the kernels: the cell size and level count of fast_score_nms's cell
-# form and the "no candidate" distance of masked_best_two.
+# form, the "no candidate" distance of masked_best_two and the most
+# observations pose_lm holds in registers (8 a thread of its 256).
 FAST_CELL = 16
 FAST_MAX_LEVELS = 16
 SEARCH_NO_CANDIDATE = 1 << 20
+POSE_MAX_OBS = 2048
 
 # Launches per kernel since the last reset_launch_counts(); a wrapper adds
 # one exactly where it launches its kernel. LAUNCHES_BY_ROLE splits them by
 # the launching thread's role (`sync.role()`: the tracker, the mapping and
 # loop workers, the global-BA worker). Several threads launch, hence the lock.
-LAUNCHES = {"fast_score_nms": 0, "masked_best_two": 0}
+LAUNCHES = {"fast_score_nms": 0, "masked_best_two": 0, "pose_lm": 0}
 LAUNCHES_BY_ROLE: dict = {k: {} for k in LAUNCHES}
 _COUNT_LOCK = threading.Lock()
 
@@ -151,6 +155,9 @@ def _declare(source: str, lib) -> None:
         lib.masked_best_two.restype = I
         lib.masked_match.argtypes = search + [I, F, P, P, P, P, P]
         lib.masked_match.restype = I
+    elif source == "pose_lm.cu":
+        lib.pose_lm.argtypes = [P, P, I, P, P, P, P, P, I, P, F, I, I, P, P, P, P]
+        lib.pose_lm.restype = I
     elif source == "launch_floor.cu":
         lib.empty_launch.argtypes = [P]
         lib.empty_launch.restype = I
@@ -164,17 +171,25 @@ def empty_launch(device=None) -> None:
         raise RuntimeError(f"empty_launch failed: CUDA error {rc}")
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
+def _check_layout(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_device(name: str, t: torch.Tensor, device) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+    _check_device(name, t, device)
+    _check_layout(name, t, dtype, shape)
 
 
 def _stream(device) -> int:
@@ -309,3 +324,53 @@ def masked_match(q_words, q_xy, q_level, q_valid, radius, t_words, t_xy, t_level
         raise RuntimeError(f"masked_best_two (match form) launch failed: CUDA error {rc}")
     _launched("masked_best_two")
     return idx, dist, ok
+
+
+def pose_lm(Tcw0, points, pt_idx, target, inv_sigma2, is_stereo, valid, K, bf: float,
+            rounds: int = 4, iters: int = 10):
+    """Kernel 3: the motion-only LM of `ops.ba.pose_optimization_plain`, all
+    rounds and iterations in one launch with the early exit on the card.
+
+    Tcw0 (4, 4) float32, points (P, 3) float32, pt_idx (N,) int32 (rows of
+    `points`), target (N, 3) float32, inv_sigma2 (N,) float32, is_stereo and
+    valid (N,) bool, K (4,) float32 (fx, fy, cx, cy), all on one card, with
+    N <= POSE_MAX_OBS; bf a
+    Python number. Returns (Tcw (4, 4) float32, inlier mask (N,) bool,
+    n_inliers int32 scalar, iterations (4,) int32: the LM iterations each
+    round ran, 0 for a round not run), all on the card; nothing is read
+    back."""
+    if isinstance(bf, torch.Tensor):
+        raise TypeError("bf: expected a Python number (a tensor would be read back)")
+    if int(rounds) < 0 or int(iters) < 0:
+        raise ValueError(f"rounds, iters: expected >= 0, got {rounds}, {iters}")
+    if points.dim() != 2 or pt_idx.dim() != 1:
+        raise ValueError(f"points, pt_idx: expected (P, 3) and (N,), got {tuple(points.shape)}, {tuple(pt_idx.shape)}")
+    n = pt_idx.shape[0]
+    if n > POSE_MAX_OBS:
+        raise ValueError(f"pt_idx: {n} observations, the kernel holds at most {POSE_MAX_OBS}")
+    if n and not points.shape[0]:
+        raise ValueError("points: empty, but there are observations")
+    # Type, shape and layout of every input before the devices, so that
+    # these refusals show (and are tested) on CPU tensors too.
+    inputs = (("Tcw0", Tcw0, torch.float32, (4, 4)), ("points", points, torch.float32, (points.shape[0], 3)),
+              ("pt_idx", pt_idx, torch.int32, (n,)), ("target", target, torch.float32, (n, 3)),
+              ("inv_sigma2", inv_sigma2, torch.float32, (n,)), ("is_stereo", is_stereo, torch.bool, (n,)),
+              ("valid", valid, torch.bool, (n,)), ("K", K, torch.float32, (4,)))
+    for name, t, dtype, shape in inputs:
+        _check_layout(name, t, dtype, shape)
+    dev = Tcw0.device
+    for name, t, _, _ in inputs:
+        _check_device(name, t, dev)
+    lib = _load("pose_lm.cu")
+    T = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    counts = torch.empty((5,), dtype=torch.int32, device=dev)
+    rc = lib.pose_lm(
+        Tcw0.data_ptr(), points.data_ptr(), points.shape[0], pt_idx.data_ptr(), target.data_ptr(),
+        inv_sigma2.data_ptr(), is_stereo.data_ptr(), valid.data_ptr(), n, K.data_ptr(), float(bf),
+        int(rounds), int(iters), T.data_ptr(), mask.data_ptr(), counts.data_ptr(), _stream(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"pose_lm launch failed: CUDA error {rc}")
+    _launched("pose_lm")
+    return T, mask, counts[0], counts[1:]

@@ -24,6 +24,8 @@ Three modes, as in the reference:
   decision for frame k is taken when its copy has arrived, at most
   `pipeline_depth` frames later; `track_*` then returns the frame's pose as
   a tensor on the device.
+In both async modes the tracker runs at most `MAP_LAG_FRAMES` frames ahead
+of a keyframe's mapping round and then waits for it (`_bound_map_lag`).
 
 Spans (`spans.py`): each `track_*` call is a span `track` keyed by its
 frame id, holding `settle` (the decisions of the frames in flight),
@@ -91,6 +93,17 @@ STAGES = (("track", 512), ("map", 128), ("loop", 128),
           ("settle", 4096), ("frame_build", 4096), ("tracking", 4096), ("decide", 4096),
           ("track_read_wait", 4096), ("track_map_wait", 4096),
           ("kf_insert", 1024), ("map_queue", 1024), ("local_ba", 1024))
+
+
+# How many frames the tracker may track after submitting a keyframe before
+# it waits for that keyframe's mapping round (async modes). The rounds share
+# the interpreter with the tracker: a tracker that never waits stretches each
+# round three times over and tracks the frames in between on a map without
+# the keyframe's points; on the online orbit with its loop closure that
+# drift doubled the error over the whole path in 6 of 15 card runs. At 1 the
+# map kept fewer keyframes with fewer points and relocalized 4 of 33 probe
+# frames; at 3 the orbit's error was over its bound again; 2 held both.
+MAP_LAG_FRAMES = 2
 
 
 class Sensor(enum.Enum):
@@ -309,6 +322,12 @@ class SlamSystem:
             self.n_loops_closed = mapper.n_loops
             self._apply_redirects()
 
+    def _bound_map_lag(self):
+        """Wait for the mapping rounds of keyframes submitted
+        `MAP_LAG_FRAMES` or more frames ago (counted as map wait)."""
+        if self._mapper is not None:
+            self._mapper.wait_rounds(self.frame_id - MAP_LAG_FRAMES)
+
     def _refresh_from_box(self):
         if self._box is not None:
             self.map, self._map_version = self._box.read()
@@ -483,6 +502,7 @@ class SlamSystem:
             # itself, which falls through to relocalization.
             self.last_frame = frontend.build_frame_only(img_t, depth_t, self._K, self._dist, self._bf,
                                                         self.frame_id, self._orb_cfg, c.width, c.height)
+        self._bound_map_lag()
         self._refresh_from_box()
         res = frontend.process_frame_impl(
             self.map, img_t, depth_t, self.last_frame, self._velocity_dev, self._have_velocity, self.ref_kf,
@@ -501,6 +521,7 @@ class SlamSystem:
             return self._first_frame(frame, timestamp)
         if self.last_frame is None:
             self.last_frame = frame
+        self._bound_map_lag()
         self._refresh_from_box()
         res = frontend.track_frame_impl(
             self.map, frame, self.last_frame, self._velocity_dev, self._have_velocity, self.ref_kf, self._K,
@@ -1139,7 +1160,7 @@ class SlamSystem:
             self.ref_kf = s.key = int(sync.host(cell[0]))
             self.n_kf_host += 1
             self.last_kf_frame = self.frame_id
-            self._mapper.submit_keyframe(self.ref_kf)
+            self._mapper.submit_keyframe(self.ref_kf, self.frame_id)
             self._stream_keyframe()
 
     def _apply_cull(self, victim: int, parent: int, T_redirect):

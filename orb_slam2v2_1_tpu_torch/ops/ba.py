@@ -11,12 +11,15 @@ step, `schur_pcg_step`, takes the observations of one shard or of several
 with a reduction over them: `parallel/dist_ba.py` runs the same body with
 the observations sharded over a device mesh.
 
-The reference's `while_loop`s stop on an early-exit flag. In
-`pose_optimization` and the window solver each LM iteration reads that flag
-once from the device (`sync.host`); the observation-list solver masks the
-iterations after the flag instead and hands the flag back unread, so a chunk
-of iterations costs its caller one read. Either way the iterations that take
-effect, and with them every result, are the reference's.
+The reference's `while_loop`s stop on an early-exit flag. On the card,
+`pose_optimization` is one launch of `csrc/pose_lm.cu` (kernel 3 of
+`kernels.py`), which decides the exit itself: nothing is read back. Its
+plain version, `pose_optimization_plain`, which CPU tensors take, and the
+window solver read that flag once per LM iteration (`sync.host`); the
+observation-list solver masks the iterations after the flag instead and
+hands the flag back unread, so a chunk of iterations costs its caller one
+read. Either way the iterations that take effect, and with them every
+result, are the reference's.
 
 chi2 thresholds and Huber deltas: 5.991 (mono, 2 dof), 7.815 (stereo, 3 dof).
 """
@@ -86,9 +89,26 @@ def _rot_cols(b0, b1, b2, x, y, zc):
 
 
 def pose_optimization(Tcw0: torch.Tensor, points: torch.Tensor, obs: Obs,
-                      K: torch.Tensor, bf, rounds: int = 4, iters: int = 10):
+                      K: torch.Tensor, bf: float, rounds: int = 4, iters: int = 10):
     """4 rounds x <= `iters` LM iterations with chi2 outlier gating between
-    rounds; Huber on rounds 0-1 only. Returns (Tcw, inlier_mask, n_inliers)."""
+    rounds; Huber on rounds 0-1 only. Returns (Tcw, inlier_mask, n_inliers).
+    Kernel 3 (`kernels.pose_lm`, one launch, no read) on CUDA tensors, the
+    plain version on CPU tensors."""
+    if not Tcw0.is_cuda:
+        return pose_optimization_plain(Tcw0, points, obs, K, bf, rounds, iters)
+    from .. import kernels
+
+    Tcw, mask, n_inliers, _ = kernels.pose_lm(
+        Tcw0.contiguous(), points.contiguous(), obs.pt_idx.to(torch.int32).contiguous(), obs.target.contiguous(),
+        obs.inv_sigma2.contiguous(), obs.is_stereo.contiguous(), obs.valid.contiguous(), K.contiguous(), bf,
+        rounds, iters)
+    return Tcw, mask, n_inliers
+
+
+def pose_optimization_plain(Tcw0: torch.Tensor, points: torch.Tensor, obs: Obs,
+                            K: torch.Tensor, bf, rounds: int = 4, iters: int = 10):
+    """Plain version of `pose_optimization`: the LM loop in eager PyTorch,
+    reading each iteration's exit flag (`sync.host`)."""
     Tcw0 = lie.orthonormalize(Tcw0)
     fx, fy = K[0], K[1]
     pw = points[obs.pt_idx.long()]

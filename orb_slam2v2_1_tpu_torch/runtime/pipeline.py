@@ -23,8 +23,19 @@ Cooperative cancellation mirrors `mbAbortBA` (src/LocalMapping.cc:126): when
 tracking enqueues a new keyframe while the mapping worker is busy, the worker
 skips the local-BA stage of the round it starts next and catches up.
 
+The tracker bounds how far it runs ahead of the mapping worker:
+`submit_keyframe(kf_id, frame)` tags a keyframe's round with the tracker's
+frame, and `wait_rounds(frame)` waits for every round tagged up to that
+frame. The workers' Python shares the interpreter lock with the tracker's,
+so a tracker that never waits takes most of it, stretches each round
+several times over, and tracks the frames in between on a map that has not
+taken in the keyframe. (ORB-SLAM2's tracking, in C++, shares no such lock;
+its `Tracking::Track` holds the map-update mutex for the whole frame, so it
+too waits for whatever holds the map.)
+
 A thread that waits for the structural lock reports the wait to the wait
-clock of `spans`, and so does the tracker while the mapping queue is full.
+clock of `spans`, and so does the tracker while the mapping queue is full
+and while it waits for a round.
 Each keyframe's time in the mapping queue is a span `map_queue` of the
 mapper's recorder, from its submit to the start of its round.
 """
@@ -34,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import struct
 import threading
+from collections import deque
 from time import perf_counter_ns
 
 import torch
@@ -139,6 +151,11 @@ class AsyncMapper:
         self.n_ba_skipped = 0
         self.n_loop_rounds = 0
         self.n_loops = 0
+        # (n_submitted after the submit, the tracker's frame) per keyframe
+        # whose round the tracker has not yet waited for; the condition is
+        # notified at the end of each round.
+        self._rounds_due = deque()
+        self._round_done = threading.Condition()
         self._map_worker = NativeWorker(self.map_q, self._guard("mapping", self._map_step))
         self._loop_worker = NativeWorker(self.loop_q, self._guard("loop", self._loop_step)) if loop_fn else None
 
@@ -155,11 +172,12 @@ class AsyncMapper:
         return body
 
     # -- tracking side ------------------------------------------------------
-    def submit_keyframe(self, kf_id: int):
+    def submit_keyframe(self, kf_id: int, frame: int = 0):
         """Queue mapping work for a just-appended keyframe and interrupt any
         local BA about to start (LocalMapping::InsertKeyFrame + mbAbortBA).
-        While the queue is full the wait is cut into short pushes, between
-        which a failed worker's exception is raised here."""
+        `frame` is the tracker's next frame, from which `wait_rounds` counts
+        the round's lag. While the queue is full the wait is cut into short
+        pushes, between which a failed worker's exception is raised here."""
         self.raise_worker_errors()
         self.abort_ba.set(1)
         msg = struct.pack("<i", kf_id)
@@ -169,6 +187,24 @@ class AsyncMapper:
                 self.raise_worker_errors()
             spans.waited(spans.MAP, t0)
         self.n_submitted += 1
+        self._rounds_due.append((self.n_submitted, frame))
+
+    def wait_rounds(self, frame: int):
+        """Wait until every round submitted at a frame <= `frame` has ended,
+        so that the tracker's next frame sees those keyframes mapped. The
+        wait is cut into short waits, between which a failed worker's
+        exception is raised here."""
+        due = 0
+        while self._rounds_due and self._rounds_due[0][1] <= frame:
+            due = self._rounds_due.popleft()[0]
+        if self.n_processed >= due:
+            return
+        t0 = perf_counter_ns()
+        with self._round_done:
+            while self.n_processed < due:
+                self.raise_worker_errors()
+                self._round_done.wait(_PUSH_POLL_MS * 1e-3)
+        spans.waited(spans.MAP, t0)
 
     def submit_join(self, kf_before: int, kf_reloc: int):
         """Queue a loop round on a candidate pair for the loop worker, behind
@@ -194,7 +230,9 @@ class AsyncMapper:
         self.box.mutate(lambda state: self._mapping_fn(state, kf_id, allow_ba))
         if not allow_ba:
             self.n_ba_skipped += 1
-        self.n_processed += 1
+        with self._round_done:
+            self.n_processed += 1
+            self._round_done.notify_all()
         if self.loop_q is not None:
             # A loop worker that died keeps its error for the tracker; its
             # queue then takes no more rounds.

@@ -1,11 +1,12 @@
 """The hand-written CUDA kernels' wrappers and their device dispatch.
 
 On the CPU (this suite's default) the dispatching functions
-`ops.fast.suppressed_score` / `suppressed_cells_pyramid` and
-`ops.matching.masked_best_two` / `match_projection` run the plain PyTorch
-versions and never reach `kernels`; the wrappers in `kernels` accept CUDA
-tensors only. The entry points that create tensors default to the card and
-raise without one. The kernel-vs-plain tests at the main path's shapes need
+`ops.fast.suppressed_score` / `suppressed_cells_pyramid`,
+`ops.matching.masked_best_two` / `match_projection` and
+`ops.ba.pose_optimization` run the plain PyTorch versions and never reach
+`kernels`; the wrappers in `kernels` accept CUDA tensors only. The entry
+points that create tensors default to the card and raise without one. The
+kernel-vs-plain tests at the main path's shapes need
 an NVIDIA card: they decide inside a fixture whether one is present and skip
 without it (a skip is not a pass). `python3 chip_smoke.py` runs the same
 comparisons on the card.
@@ -15,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from orb_slam2v2_1_tpu_torch import kernels
-from orb_slam2v2_1_tpu_torch.ops import fast, hamming, image, matching
+from orb_slam2v2_1_tpu_torch import kernel_times, kernels, sync
+from orb_slam2v2_1_tpu_torch.ops import ba, fast, hamming, image, matching
+import torch_pose_problems as pose
 
 torch.set_num_threads(2)
 
@@ -92,20 +94,62 @@ class TestCpuPath:
         m = matching.match_projection(*q, *t, r, max_dist=120, nn_ratio=0.95)
         e = matching.match_projection_plain(*q, *t, r, max_dist=120, nn_ratio=0.95)
         assert torch.equal(m.ok, e.ok) and torch.equal(m.dist, e.dist) and torch.equal(m.idx, e.idx)
-        assert kernels.LAUNCHES == {"fast_score_nms": 0, "masked_best_two": 0}
+        args = pose.pose_problem(0, 200)
+        got, ref = ba.pose_optimization(*args), ba.pose_optimization_plain(*args)
+        for g, e in zip(got, ref):
+            assert torch.equal(g, e)
+        assert kernels.LAUNCHES == {"fast_score_nms": 0, "masked_best_two": 0, "pose_lm": 0}
 
-    @pytest.mark.parametrize("wrapper", ["fast_score_nms", "fast_cells_pyramid", "masked_best_two", "masked_match"])
+    @pytest.mark.parametrize("wrapper", ["fast_score_nms", "fast_cells_pyramid", "masked_best_two", "masked_match",
+                                         "pose_lm"])
     def test_wrappers_refuse_cpu_tensors(self, rng, monkeypatch, wrapper):
         monkeypatch.setattr(kernels, "_load", lambda src: pytest.fail("checks come before the build"))
         q, t = _features(rng, 1, 4), _features(rng, 1, 5)
+        T0, pts, obs, K, bf = pose.pose_problem(0, 20)
         calls = {
             "fast_score_nms": lambda: kernels.fast_score_nms(torch.zeros(8, 8)),
             "fast_cells_pyramid": lambda: kernels.fast_cells_pyramid([torch.zeros(40, 40)], 16, 19, 20.0, 7.0),
             "masked_best_two": lambda: kernels.masked_best_two(*q, torch.ones(1, 4), *t, -1, 1),
             "masked_match": lambda: kernels.masked_match(*q, torch.ones(1, 4), *t, -1, 1, 100, 0.9),
+            "pose_lm": lambda: kernels.pose_lm(T0, pts, *obs[1:], K, bf),
         }
         with pytest.raises(ValueError, match="CUDA"):
             calls[wrapper]()
+
+    @pytest.mark.parametrize("bad", ["Tcw0_float64", "pt_idx_int64", "valid_uint8", "target_strided",
+                                     "points_strided", "target_shape", "K_shape", "bf_tensor", "rounds_negative",
+                                     "over_2048_observations"])
+    def test_pose_lm_refuses_wrong_dtype_layout_and_arguments(self, monkeypatch, bad):
+        """The wrapper checks type, shape and layout before the device, so
+        these refusals show on CPU tensors too, and before any build."""
+        monkeypatch.setattr(kernels, "_load", lambda src: pytest.fail("checks come before the build"))
+        T0, pts, obs, K, bf = pose.pose_problem(0, 20)
+        w0, wpts, wobs, wK, wbf = pose.pose_problem(0, kernels.POSE_MAX_OBS + 1)
+        wide = (w0, wpts, wobs.pt_idx, wobs.target, wobs.inv_sigma2, wobs.is_stereo, wobs.valid, wK, wbf)
+        args = dict(Tcw0=T0, points=pts, pt_idx=obs.pt_idx, target=obs.target, inv_sigma2=obs.inv_sigma2,
+                    is_stereo=obs.is_stereo, valid=obs.valid, K=K, bf=bf, rounds=4, iters=10)
+        change, error, match = {
+            "Tcw0_float64": (dict(Tcw0=T0.double()), ValueError, "dtype"),
+            "pt_idx_int64": (dict(pt_idx=obs.pt_idx.long()), ValueError, "dtype"),
+            "valid_uint8": (dict(valid=obs.valid.to(torch.uint8)), ValueError, "dtype"),
+            "target_strided": (dict(target=torch.cat([obs.target, obs.target], 1)[:, ::2]), ValueError, "contiguous"),
+            "points_strided": (dict(points=pts.t().contiguous().t()), ValueError, "contiguous"),
+            "target_shape": (dict(target=obs.target[:, :2].contiguous()), ValueError, "shape"),
+            "K_shape": (dict(K=torch.cat([K, K])), ValueError, "shape"),
+            "bf_tensor": (dict(bf=torch.tensor(bf)), TypeError, "bf"),
+            "rounds_negative": (dict(rounds=-1), ValueError, "rounds"),
+            "over_2048_observations": (dict(zip(("Tcw0", "points", "pt_idx", "target", "inv_sigma2", "is_stereo",
+                                                 "valid", "K", "bf"), wide)), ValueError, "at most 2048"),
+        }[bad]
+        with pytest.raises(error, match=match):
+            kernels.pose_lm(**{**args, **change})
+
+    def test_sources_and_counters_list_pose_lm(self):
+        """The kernel builds in the same parallel nvcc batch as the others
+        and is counted like them."""
+        assert "pose_lm.cu" in kernels.SOURCES
+        assert (kernels.CSRC / "pose_lm.cu").is_file()
+        assert isinstance(kernels.LAUNCHES["pose_lm"], int) and "pose_lm" in kernels.LAUNCHES_BY_ROLE
 
     def test_cell_form_refuses_other_cells_and_too_many_levels(self):
         with pytest.raises(ValueError, match="cell"):
@@ -331,3 +375,86 @@ class TestOnCard:
         assert bool(got.success) and bool(ref.success) and int(got.n_inliers) == int(ref.n_inliers) == 240
         assert torch.equal(got.inliers.cpu(), ref.inliers)
         np.testing.assert_allclose(got.Tcw.cpu().numpy(), ref.Tcw.numpy(), atol=1e-4)
+
+
+def _on(device, T0, pts, obs, K, bf):
+    return T0.to(device), pts.to(device), ba.Obs(*(x.to(device) for x in obs)), K.to(device), bf
+
+
+def _flat(args):
+    """`kernels.pose_lm`'s positional inputs from a problem on the card."""
+    T0, pts, obs, K, bf = args
+    return T0, pts, obs.pt_idx, obs.target, obs.inv_sigma2, obs.is_stereo, obs.valid, K, bf
+
+
+@pytest.mark.cuda
+class TestPoseLmOnCard:
+    """Kernel 3 (`kernels.pose_lm`, through `ops.ba.pose_optimization`)
+    against its plain version on the card, on the cases of
+    `torch_pose_problems.CASES`."""
+
+    @pytest.mark.parametrize("case", list(pose.CASES))
+    def test_against_plain(self, cuda_device, case):
+        """Tolerances, all from the sums running in another order (per
+        observation over the three rows, then a fixed tree over threads,
+        against the plain version's matrix products): the pose within 1e-4;
+        the inlier masks equal except for observations whose chi2 at the
+        plain pose lies within 1e-4 (relative) of its threshold; n_inliers
+        the count of the kernel's own mask. Two calls agree bit for bit."""
+        args = _on(cuda_device, *pose.CASES[case]())
+        iters = pose.ITERS.get(case, 10)
+        (ref_T, ref_mask, ref_n), flags = pose.exit_flags(*args, iters=iters)
+        kernels.reset_launch_counts()
+        got = ba.pose_optimization(*args, iters=iters)
+        again = ba.pose_optimization(*args, iters=iters)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["pose_lm"] == 2
+        for g, a in zip(got, again):
+            assert torch.equal(g, a)
+        T, mask, n = got
+        # The kernel's own iteration count per round: each round within the
+        # cap; where the plain version's exits are fixed by the case (each
+        # round ending in its first iteration, a round cut by the cap,
+        # nothing valid), the same.
+        ran = kernels.pose_lm(*_flat(args), iters=iters)[3].cpu().tolist()
+        plain = [len(r) for r in pose.rounds_of(flags, iters)]
+        assert len(plain) == 4 and all(1 <= k <= iters for k in ran), (ran, plain)
+        if case in ("first_iteration_exit", "all_invalid"):
+            assert ran == plain, (ran, plain)
+        if case == "capped_far":
+            assert ran[0] == plain[0] == iters, (ran, plain)
+        assert T.dtype == torch.float32 and mask.dtype == torch.bool and n.dtype == torch.int32 and n.dim() == 0
+        np.testing.assert_allclose(T.cpu().numpy(), ref_T.cpu().numpy(), atol=1e-4)
+        assert torch.equal(T[3].cpu(), torch.tensor([0.0, 0.0, 0.0, 1.0]))
+        near = kernel_times.pose_near_threshold(ref_T, *args[1:])
+        differ = (mask != ref_mask).cpu().numpy()
+        assert not (differ & ~near).any(), f"{int((differ & ~near).sum())} inlier flags differ away from the threshold"
+        assert int(n) == int(mask.sum())
+        if not differ.any():
+            assert int(n) == int(ref_n)
+
+    def test_one_launch_no_read_no_sync(self, cuda_device):
+        """A call on the card launches `pose_lm` once and at most 30 kernels
+        in all, reads nothing through `sync`, and makes no implicit
+        synchronization (sync debug mode "error" raises on one)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        args = _on(cuda_device, *pose.CASES["rgbd_1000"]())
+        ba.pose_optimization(*args)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        reads = sync.COUNT["syncs"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = ba.pose_optimization(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+        assert sync.COUNT["syncs"] == reads and kernels.LAUNCHES["pose_lm"] == 1
+        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        n_kernels = sum(e.count for e in rows if "memcpy" not in e.key.lower() and "memset" not in e.key.lower())
+        assert sum(e.count for e in rows if "pose_lm" in e.key) == 1, [e.key for e in rows]
+        assert 1 <= n_kernels <= 30, [(e.key, e.count) for e in rows]
+        assert out[0].is_cuda and out[1].is_cuda and out[2].is_cuda

@@ -196,6 +196,57 @@ def test_async_mapper_counts_rounds_and_stops_without_draining():
     assert m._map_worker.done() and m._loop_worker.done()
 
 
+def test_wait_rounds_waits_for_rounds_tagged_up_to_the_frame():
+    """The tracker's lag bound: `wait_rounds(f)` returns once every round
+    submitted at a frame <= f has ended, waits for none submitted later, and
+    counts its wait on the map wait clock."""
+    from orb_slam2v2_1_tpu_torch import spans
+
+    box = pipeline.MapBox(0)
+    gates = [threading.Event() for _ in range(2)]
+
+    def mapping_fn(state, kf_id, allow_ba):
+        gates[kf_id].wait(5)
+        return state + 1
+
+    m = pipeline.AsyncMapper(box, mapping_fn)
+    try:
+        m.submit_keyframe(0, 10)
+        m.submit_keyframe(1, 12)
+        m.wait_rounds(9)  # nothing tagged at or before frame 9: no wait
+        assert m.n_processed == 0
+        threading.Timer(0.2, gates[0].set).start()
+        w0 = spans._T.waited[spans.MAP]
+        t0 = time.monotonic()
+        m.wait_rounds(11)  # round 0 only
+        assert m.n_processed == 1 and time.monotonic() - t0 >= 0.15
+        assert spans._T.waited[spans.MAP] - w0 >= 0.15e9
+        m.wait_rounds(11)  # already waited for: returns at once
+        gates[1].set()
+        m.wait_rounds(12)
+        assert m.n_processed == 2 and box.read()[0] == 2
+    finally:
+        for g in gates:
+            g.set()
+        m.shutdown(drain=True)
+
+
+def test_wait_rounds_raises_a_failed_worker_error():
+    box = pipeline.MapBox(0)
+
+    def mapping_fn(state, kf_id, allow_ba):
+        raise RuntimeError("mapping failed")
+
+    m = pipeline.AsyncMapper(box, mapping_fn)
+    m.submit_keyframe(0, 3)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="mapping failed"):
+        m.wait_rounds(3)
+    assert time.monotonic() - t0 < 30
+    with pytest.raises(RuntimeError, match="mapping failed"):
+        m.shutdown()
+
+
 def test_failed_worker_surfaces_on_submit():
     """A mapping worker that raised stops taking keyframes; the tracker sees
     its error on the next submit instead of blocking on the full queue."""

@@ -32,8 +32,8 @@ def instrument(slam):
     m.test_submitted = m.test_loop_rounds = 0
     submit, service = m.submit_keyframe, m._loop_service_fn
 
-    def submit_counted(kf_id):
-        submit(kf_id)
+    def submit_counted(kf_id, *frame):
+        submit(kf_id, *frame)
         m.test_submitted += 1
 
     def service_counted():

@@ -167,7 +167,8 @@ def main():
                                    "spread_m": float(np.linalg.norm(c[m] - mean, axis=1).mean())}
         print(json.dumps({"run": run, "ate_m": rec["ate_m"],
                           f"ate_first_{chip_smoke.ASYNC_PREFIX}_m": rec[f"ate_first_{chip_smoke.ASYNC_PREFIX}_m"],
-                          "keyframes": rec["keyframes"], "closures": slam.loop_closer.closures,
+                          "keyframes": rec["keyframes"], "fps": rec["fps"], "map_ms_p50": rec["map_ms_p50"],
+                          "closures": slam.loop_closer.closures,
                           "loops_closed": slam.n_loops_closed, "relocalizations_at": rec["relocalizations_at"],
                           "losses": slam.losses, "kf_points": _kf_points(slam.map),
                           "segments": seg, "card": card}), flush=True)
