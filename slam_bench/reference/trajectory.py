@@ -33,11 +33,17 @@ def umeyama(P: np.ndarray, Q: np.ndarray, with_scale: bool = False):
     return s, R, (mu_q - s * R @ mu_p)[:, 0]
 
 
-def aligned_errors(est_c: np.ndarray, gt_c: np.ndarray) -> np.ndarray:
+def aligned_errors(est_c: np.ndarray, gt_c: np.ndarray, with_scale: bool = False) -> np.ndarray:
     """Per-frame position errors (n,) in metres of estimated camera centres
     after the rigid alignment onto the true ones (a depth sensor fixes the
-    scale)."""
-    s, R, t = umeyama(est_c, gt_c)
+    scale), or with `with_scale` the similarity (a monocular map's scale is
+    arbitrary)."""
+    return residuals(est_c, gt_c, *umeyama(est_c, gt_c, with_scale))
+
+
+def residuals(est_c: np.ndarray, gt_c: np.ndarray, s: float, R: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """Per-frame distances (n,) of estimated camera centres moved by
+    X -> s R X + t (`umeyama`'s alignment) to the true ones."""
     return np.linalg.norm((s * (R @ np.asarray(est_c, np.float64).T)).T + t - gt_c, axis=1)
 
 

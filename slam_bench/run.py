@@ -5,15 +5,17 @@
 from the root of a checkout, on a machine with the cards the cell asks for
 (it exits with 2 and prints no result without them). The cell's
 configuration, traffic, limits and metric readers are found by name
-(`manifest.py`). The run renders one session's frames from the seed, builds
-and warms up the system, measures for `--seconds` (`window.py`), shuts the
-system down, checks what it produced against the plain reference
-(`check.py`) and prints, as the last line of standard output, one JSON
-object: `correct`, `attempted`, `failed`, `metrics` (the cell's end-to-end
-metrics, or with `--trace 1` its per-layer metrics, read from a profiled
-stretch of the window, `trace.py`), `device`, with `--trace 1` `breakdown`,
-and last `checked`, each compared number beside its limit. The log, the
-set-up split and the compared numbers go to standard error.
+(`manifest.py`), and every name the cell uses (its sensor, its camera path,
+each limit's number) is resolved before the card is touched. The run renders
+one session's frames from the seed, builds and warms up the system, measures
+for `--seconds` (`window.py`), shuts the system down, checks what it
+produced against the plain reference (`check.py`) and prints, as the last
+line of standard output, one JSON object: `correct`, `attempted`, `failed`,
+`metrics` (the cell's end-to-end metrics, or with `--trace 1` its per-layer
+metrics, read from a profiled stretch of the window, `trace.py`), `device`,
+with `--trace 1` `breakdown`, and last `checked`, each compared number
+beside its limit. The log, the set-up split and the compared numbers go to
+standard error.
 """
 
 import time
@@ -60,6 +62,25 @@ def card_line() -> str:
     return out.splitlines()[0] if out else "not measured"
 
 
+def resolve(man, cell_name: str) -> SimpleNamespace:
+    """Every piece the cell names, found before any set-up: its
+    configuration, traffic and limits, its sensor's entry of `sensors.py`,
+    its camera path's function and the `number(ctx)` function of each limit
+    that `check.py` does not compute. A name that resolves to nothing raises
+    a ValueError naming the file looked for."""
+    from . import check, sensors, stream
+
+    cell = man.cell(cell_name)
+    config, traffic, limits = man.config(cell["config"]), man.traffic(cell["traffic"]), man.limits(cell_name)
+    sensors.spec(config["sensor"], f"slam_bench/configs/{cell['config']}.json")
+    if traffic["sensor"] != config["sensor"]:
+        raise ValueError(f"slam_bench/traffic/{cell['traffic']}.json feeds a {traffic['sensor']} camera; "
+                         f"slam_bench/configs/{cell['config']}.json is {config['sensor']}")
+    poses = stream.path_function(traffic["path"]["kind"], man.here)
+    checks = {name: man.check(name) for name in limits if name not in check.NUMBERS}
+    return SimpleNamespace(cell=cell, config=config, traffic=traffic, limits=limits, poses=poses, checks=checks)
+
+
 def run_cell(man, cell_name: str, seed: int, seconds: float, traced: bool, device: str = "cuda",
              t_start: float = T_START, tf32: bool = False) -> dict:
     """One run of the cell; returns the result object. `tf32=True` runs the
@@ -68,8 +89,8 @@ def run_cell(man, cell_name: str, seed: int, seconds: float, traced: bool, devic
 
     from . import check, stream, trace, window
 
-    cell = man.cell(cell_name)
-    config, traffic = man.config(cell["config"]), man.traffic(cell["traffic"])
+    parts = resolve(man, cell_name)
+    cell, config, traffic = parts.cell, parts.config, parts.traffic
     slam_cfg, sensor = config["slam"], config["sensor"]
     cuda = device.startswith("cuda")
     marks = [("start", t_start), ("import torch", time.perf_counter())]
@@ -91,7 +112,7 @@ def run_cell(man, cell_name: str, seed: int, seconds: float, traced: bool, devic
         kernels.build()
     native.load()
     mark("kernels and runtime built or loaded")
-    sess = stream.render_session(slam_cfg, sensor, traffic, seed, device)
+    sess = stream.render_session(slam_cfg, sensor, traffic, seed, device, parts.poses)
     mark("render")
     set_tf32(tf32)
     slam = window.build_system(slam_cfg, sensor, device)
@@ -110,11 +131,12 @@ def run_cell(man, cell_name: str, seed: int, seconds: float, traced: bool, devic
         gc.collect()
         gc.freeze()  # set-up's objects out of the collector's way inside the window
         counters_start = window.counters()
-        stage_start = window.stage_lengths(slam)
+        stages = window.Stages(slam)
         t_window = time.perf_counter()
-        window.drive(win, slam, sess, sensor, tracer, first)
+        window.drive(win, slam, sess, sensor, tracer, first, stages)
         counters_end = window.counters()
-        stage = window.stage_samples(slam, stage_start)
+        stages.gather()
+        stage = stages.samples()
         peak = torch.cuda.max_memory_allocated(device) if cuda else 0
         slam.flush()  # frames in flight at the close: late, not missing
     finally:
@@ -133,10 +155,7 @@ def run_cell(man, cell_name: str, seed: int, seconds: float, traced: bool, devic
     if tracer is not None and tracer.summary is not None:
         off = tracer.offset_ns
         trace_frames = sum(1 for t, _ in win.published.values() if tracer.t0 <= t * 1e9 + off <= tracer.t1)
-    first_pose = {}
-    for (s, k), (_, T) in win.published.items():
-        if T is not None:
-            first_pose[s] = min(first_pose.get(s, k), k)
+    first_pose = win.first_pose()
     attempted = win.attempted()
     failed = sum(1 for key in attempted
                  if key in win.published and win.published[key][1] is None and key[1] > first_pose.get(key[0], 1e9))
@@ -149,7 +168,7 @@ def run_cell(man, cell_name: str, seed: int, seconds: float, traced: bool, devic
         f"{win.loops_at}; stage samples in the window map {window.count(stage['map'])} loop "
         f"{window.count(stage['loop'])}; reads {counters_end['reads']}; launches {counters_end['launches']}")
 
-    correct, rows, numbers = check.judge(win, maps, sess, slam_cfg, man.limits(cell_name), seed)
+    correct, rows, numbers = check.judge(win, maps, sess, config, parts.limits, seed, parts.checks)
     log(f"numbers of the check: {numbers}")
     if not lat:
         correct = False

@@ -4,9 +4,11 @@ the JAX package's name is the port's without its suffix."""
 import subprocess
 import sys
 import types
+from pathlib import Path
 
 from slam_bench import run
 from slam_bench.manifest import HERE, ROOT
+from slam_bench_copy import SAMPLES
 
 PROBE = """
 import json, sys
@@ -47,3 +49,29 @@ def test_forbidden_names_are_compared_whole(monkeypatch):
     assert run.forbidden_modules() == []
     monkeypatch.setitem(sys.modules, "orb_slam2v2_1_tpu.ops", types.ModuleType("x"))
     assert run.forbidden_modules() == ["orb_slam2v2_1_tpu"]
+
+
+def _files(kind: str) -> list[Path]:
+    """The harness's files of `kind`, and the tests' samples of one."""
+    return sorted((HERE / kind).glob("*.py")) + sorted((SAMPLES / kind).glob("*.py"))
+
+
+def _load(path: Path, kind: str, function: str) -> str:
+    here = str(path.parent.parent)
+    return f"from slam_bench.manifest import load\nload({here!r}, {kind!r}, {path.stem!r}, {function!r})"
+
+
+def test_camera_paths_load_numpy_only():
+    files = _files("paths")
+    assert files
+    base = _loaded("import numpy\nimport slam_bench.manifest")
+    for path in files:
+        assert _loaded("import numpy\n" + _load(path, "paths", "poses")) == base, path
+
+
+def test_checks_load_neither_jax_nor_the_program():
+    files = _files("checks")
+    assert files
+    for path in files:
+        names = _loaded(_load(path, "checks", "number"))
+        assert not names & {*run.FORBIDDEN, "orb_slam2v2_1_tpu_torch"}, path

@@ -8,9 +8,11 @@ import shutil
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 
 from slam_bench.manifest import HERE, ROOT, Manifest
+from slam_bench_copy import add_cell, add_samples, copy_harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -73,14 +75,16 @@ def test_every_moves_is_reported_where_listed(bench):
 
 
 def test_every_piece_found_by_name(bench):
+    from slam_bench import check, run
+
     man = Manifest()
     for w in bench["workloads"]:
         cfg, traffic, limits = man.config(w["config"]), man.traffic(w["traffic"]), man.limits(w["name"])
         assert cfg["name"] == w["config"] and traffic["name"] == w["traffic"]
         assert cfg["sensor"] == traffic["sensor"]
         assert {"unanswered", "map_point_m", "orb_keypoints_differ", "orb_bits_differ"} <= set(limits)
-        assert set(limits) <= {"unanswered", "ate_m", "rot_rmse_deg", "map_point_m", "orb_keypoints_differ",
-                               "orb_bits_differ"}
+        parts = run.resolve(man, w["name"])
+        assert set(limits) == {n for n in limits if n in check.NUMBERS} | set(parts.checks)
     for m in bench["end_to_end"] + bench["per_layer"]:
         assert callable(man.reader(m["name"]))
     for c in bench["configs"]:
@@ -142,3 +146,69 @@ def test_every_traffic_feeds_what_the_window_runs():
     slam_cfg = Manifest().config("tum_rgbd")["slam"]
     with pytest.raises(ValueError, match="feed"):
         stream.render_session(slam_cfg, "rgbd", dict(traffic, feed="open_loop"), 1, "cpu")
+
+
+def test_a_sensor_a_path_and_a_check_added_as_new_files(tmp_path):
+    """A monocular configuration, a camera path and a compared number come
+    as new files and entries: found by name, used by `render_session` and
+    `judge`, and no file that was there changes."""
+    from slam_bench import check, run, stream
+
+    import slam_bench_synthetic as syn
+
+    here = copy_harness(tmp_path)
+    before = _digest(here)
+    add_samples(here)
+    cfg = json.loads((here / "configs" / "tum_rgbd.json").read_text())
+    cfg.update(name="tum_mono", sensor="monocular")
+    cfg["slam"].update(width=80, height=60, fx=68.75, fy=68.75, cx=40.0, cy=30.0, bf=0.0)
+    traffic = json.loads((here / "traffic" / "orbit_explore.json").read_text())
+    traffic.update(name="sweep", sensor="monocular", frames=[0, 4], room_planes=16,
+                   path={"kind": "sweep", "center": [0.0, 0.0, 0.5], "amplitude_m": 1.0, "period": 96})
+    limits = {"unanswered": 0, "ate_m": 0.05, "first_pose_frame": 10}
+    man = add_cell(tmp_path, here, "tum_mono.sweep", cfg, traffic, limits)
+    after = _digest(here)
+    assert all(after[f] == h for f, h in before.items()), "an existing file of the harness changed"
+
+    parts = run.resolve(man, "tum_mono.sweep")
+    assert set(parts.checks) == {"first_pose_frame"} and parts.limits == limits
+    sess = stream.render_session(cfg["slam"], "monocular", traffic, 7, "cpu", parts.poses)
+    x = np.sin(2 * np.pi * np.arange(4) / 96)
+    np.testing.assert_allclose(sess.gt[:, 0, 3], -x, atol=1e-7)
+    assert sess.second is None and sess.first.shape == (4, 60, 80)
+    win, maps = syn.run(syn.session(), sessions=(
+        {"frames": 10, "keyframes": (6,), "unpublished": (0, 1, 2, 3, 4), "lost": ()},))
+    ok, rows, numbers = check.judge(win, maps, syn.session(), dict(cfg, slam=syn.CFG), limits, 1, parts.checks)
+    assert [r[0] for r in rows] == list(limits) and numbers["first_pose_frame"] == 5.0
+    assert ok
+
+
+@pytest.mark.parametrize("what", ["sensor", "path", "limit"])
+def test_a_name_that_resolves_to_nothing_fails_before_set_up(tmp_path, monkeypatch, what):
+    """A misnamed sensor, camera path or limit fails before the card is
+    touched, naming the file looked for."""
+    import torch
+
+    from slam_bench import run, stream
+
+    def touched(*a, **k):
+        raise AssertionError("set-up began")
+
+    monkeypatch.setattr(torch.cuda, "init", touched)
+    monkeypatch.setattr(stream, "render_session", touched)
+    here = copy_harness(tmp_path)
+    cfg = json.loads((here / "configs" / "tum_rgbd.json").read_text())
+    traffic = json.loads((here / "traffic" / "orbit_explore.json").read_text())
+    limits = json.loads((here / "limits" / "tum_rgbd.orbit_explore.json").read_text())
+    cfg, traffic, looked_for = dict(cfg, name="c"), dict(traffic, name="t"), {
+        "sensor": "slam_bench/sensors.py", "path": "slam_bench/paths/spiral.py",
+        "limit": "slam_bench/checks/gap_m.py"}[what]
+    if what == "sensor":
+        cfg["sensor"] = traffic["sensor"] = "sonar"
+    elif what == "path":
+        traffic["path"] = {"kind": "spiral", "turns": 2}
+    else:
+        limits["gap_m"] = 0.1
+    man = add_cell(tmp_path, here, "c.t", cfg, traffic, limits)
+    with pytest.raises(ValueError, match=re.escape(looked_for)):
+        run.run_cell(man, "c.t", 1, 1.0, traced=False, device="cuda")

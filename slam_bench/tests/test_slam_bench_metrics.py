@@ -35,22 +35,42 @@ def test_counters_and_stage_samples(read):
 
 
 def test_stage_samples_are_cut_at_the_window_start(read):
+    """Samples come from the span ring (`window.Stages`): those that ended
+    before the window are left out, those gathered before the ring wraps are
+    kept however many a name's deque would hold, and a ring that lost
+    records between two gathers reads nothing."""
     from collections import deque
+    from time import perf_counter_ns
 
     from slam_bench import window
 
-    slam = SimpleNamespace(_metrics={"map": deque([900.0, 800.0], maxlen=5), "loop": deque(maxlen=4),
-                                     "track": deque([1.0] * 3, maxlen=3)})
-    start = window.stage_lengths(slam)  # set-up left two map rounds
-    slam._metrics["map"].extend([300.0, 100.0])
-    slam._metrics["loop"].append(5.0)
-    stage = window.stage_samples(slam, start)
-    assert stage["map"] == [300.0, 100.0] and stage["loop"] == [5.0]
-    assert stage["track"] is None  # full: samples fell off its front
+    ring = deque(maxlen=6)
+
+    def span(name, ms):
+        t = perf_counter_ns()
+        ring.append((name, "mapping", 0, None, t, t, ms))
+
+    slam = SimpleNamespace(_metrics={"map": deque(maxlen=2), "loop": deque(maxlen=2), "track": deque(maxlen=2)},
+                           _rec=SimpleNamespace(ring=ring))
+    span("map", 900.0)  # set-up left two map rounds
+    span("map", 800.0)
+    stages = window.Stages(slam)
+    span("map", 300.0)
+    span("map", 100.0)
+    span("loop", 5.0)
+    stages.gather()
+    stage = stages.samples()
+    assert stage["map"] == [300.0, 100.0] and stage["loop"] == [5.0] and stage["track"] == []
     run = SimpleNamespace(stage_ms=stage)
     assert read("map_round_ms_p50", run) == pytest.approx(200.0)
-    slam._metrics["map"].append(50.0)  # now full
-    assert read("map_round_ms_p50", SimpleNamespace(stage_ms=window.stage_samples(slam, start))) is None
+    for ms in (50.0, 60.0, 70.0, 80.0):  # the ring wraps, more rounds than the map deque holds
+        span("map", ms)
+    stages.gather()
+    assert stages.samples()["map"] == [300.0, 100.0, 50.0, 60.0, 70.0, 80.0]
+    for _ in range(7):  # more than the ring holds before the next gather
+        span("track", 1.0)
+    stages.gather()
+    assert read("map_round_ms_p50", SimpleNamespace(stage_ms=stages.samples())) is None
 
 
 def test_idle_share_is_one_minus_the_interval_union():

@@ -78,6 +78,27 @@ def test_ate_agrees_with_the_ports():
     assert 0.005 < ours < 0.03
 
 
+def test_similarity_ate_agrees_with_the_ports():
+    """A monocular run's alignment: the estimate at 0.37 of the truth's scale."""
+    rng = np.random.default_rng(1)
+    gt_c = np.stack([(0.1 * i, 0.02 * i * i, -0.05 * i) for i in range(20)])
+    R = scene_ref.so3_exp([0.1, -0.2, 0.3])
+    est_c = 0.37 * gt_c @ R.T + 0.5 + rng.normal(0, 0.004, gt_c.shape)
+    gt, est = [], []
+    for g, e in zip(gt_c, est_c):
+        gt.append(np.eye(4))
+        gt[-1][:3, 3] = g
+        est.append(np.eye(4))
+        est[-1][:3, 3] = e
+    ours = float(np.sqrt(np.mean(traj_ref.aligned_errors(est_c, gt_c, with_scale=True) ** 2)))
+    theirs = port_traj.ate_rmse([(i * 0.1, E) for i, E in enumerate(est)], {i * 0.1: T for i, T in enumerate(gt)},
+                                align_scale=True)
+    assert ours == pytest.approx(theirs, rel=1e-9)
+    assert 0.003 < ours < 0.03
+    assert traj_ref.umeyama(est_c, gt_c, with_scale=True)[0] == pytest.approx(1 / 0.37, rel=0.02)
+    assert float(np.sqrt(np.mean(traj_ref.aligned_errors(est_c, gt_c) ** 2))) > 0.3
+
+
 def test_orientation_error_is_relative_to_the_first_pose():
     R = [scene_ref.so3_exp([0.0, 0.1 * i, 0.0]) for i in range(5)]
     gt = np.stack([np.block([[r, np.zeros((3, 1))], [np.zeros((1, 3)), np.ones((1, 1))]]) for r in R])

@@ -1,8 +1,10 @@
 """The readers of the program's spans and wait counters on made-up runs:
 nothing from a run that lacks the name (a program without the span), an
-empty list or a full deque (None); the median or the mean otherwise."""
+empty list or a ring that lost records (None); the median or the mean
+otherwise."""
 
 from collections import deque
+from time import perf_counter_ns
 from types import SimpleNamespace
 
 import numpy as np
@@ -47,16 +49,27 @@ def test_means(man, metric):
 
 @pytest.mark.parametrize("metric", sorted(READERS))
 def test_read_through_the_window_cut(man, metric):
-    """The samples come through `window.stage_samples`: cut at the window's
-    start, and a deque that filled in the window reads nothing."""
+    """The samples come through `window.Stages`: gathered from the span
+    ring, cut at the window's start, and a ring that lost records between
+    two gathers reads nothing."""
     name = READERS[metric]
-    slam = SimpleNamespace(_metrics={name: deque([50.0], maxlen=4)})
-    start = window.stage_lengths(slam)
-    slam._metrics[name].extend([2.0, 4.0])
-    got = man.reader(metric)(SimpleNamespace(stage_ms=window.stage_samples(slam, start)))
-    assert got == pytest.approx(3.0)
-    slam._metrics[name].append(6.0)  # full: its front is lost
-    assert man.reader(metric)(SimpleNamespace(stage_ms=window.stage_samples(slam, start))) is None
+    ring = deque(maxlen=4)
+
+    def span(ms):
+        t = perf_counter_ns()
+        ring.append((name, "tracker", 0, None, t, t, ms))
+
+    slam = SimpleNamespace(_metrics={name: deque(maxlen=1)}, _rec=SimpleNamespace(ring=ring))
+    span(50.0)
+    stages = window.Stages(slam)
+    span(2.0)
+    span(4.0)
+    stages.gather()
+    assert man.reader(metric)(SimpleNamespace(stage_ms=stages.samples())) == pytest.approx(3.0)
+    for _ in range(5):  # the ring wraps past the last gather's newest record
+        span(6.0)
+    stages.gather()
+    assert man.reader(metric)(SimpleNamespace(stage_ms=stages.samples())) is None
 
 
 def test_entries(man):
